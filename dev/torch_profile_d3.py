@@ -1,0 +1,124 @@
+"""Where the time of d3 distillation sampling goes on a CUDA card (tsim_tpu_torch).
+
+    python3 dev/torch_profile_d3.py [--batch 1048576] [--batches 4] [--out build/profile_d3]
+
+1. Stage split of the sampler's own batch step (``_sample_batch``) on the
+   host clock, with ``torch.cuda.synchronize()`` after each stage: noise
+   draw, ladder (evaluations and draws), bitplane pack, device-to-host
+   copy, host unpack into the result array. Medians over the batches.
+2. The same batches through ``sample()`` without and with
+   ``torch.profiler``: wall time of each, the device's busy share (device
+   time of all kernels over the profiled wall time; one stream, so they
+   do not overlap), and device time by kernel. The Chrome trace and the
+   full table go under ``--out``.
+
+Needs a CUDA device and the d3 program committed in the package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> None:
+    import torch
+
+    from tsim_tpu_torch.models import distillation_d3
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, default=1 << 20)
+    parser.add_argument("--batches", type=int, default=4)
+    parser.add_argument("--out", default="build/profile_d3")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip())
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    B, n = args.batch, args.batches
+
+    sampler = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cuda")
+    sampler.sample(B, batch_size=B)  # warm-up: kernel build and first launches
+    torch.cuda.synchronize()
+
+    stages = {k: [] for k in ("noise", "ladder", "pack", "d2h", "unpack")}
+    result = np.empty((B, sampler._program.num_outputs), dtype=np.bool_)
+    for _ in range(n):
+        last = [time.perf_counter()]
+
+        def stage(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name].append((now - last[0]) * 1e3)
+            last[0] = now
+
+        sampler._sample_batch(B, result, stage)
+    total = sum(statistics.median(v) for v in stages.values())
+    print(f"stage split, batch {B}, median of {n} (ms):")
+    for k, v in stages.items():
+        med = statistics.median(v)
+        print(f"  {k:7s} {med:9.3f}  ({100 * med / total:5.1f}%)")
+    print(f"  {'sum':7s} {total:9.3f}  -> {B / total * 1e3:.0f} shots/s with every stage serialised")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.sample(n * B, batch_size=B)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(n * B, batch_size=B)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # Device-side entries only: a CPU op's self device time repeats the
+    # time of the kernels it launched, which appear as entries of their own.
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(
+        (
+            (evt.key, _self_device_us(evt), evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == cuda
+        ),
+        key=lambda r: -r[1],
+    )
+    busy_us = sum(r[1] for r in rows)
+    print(f"sample({n} x {B}): {plain_wall * 1e3:.1f} ms unprofiled, {prof_wall * 1e3:.1f} ms profiled "
+          f"({n * B / plain_wall:.0f} shots/s unprofiled)")
+    print(f"device busy {busy_us / 1e3:.1f} ms of {prof_wall * 1e3:.1f} ms profiled wall "
+          f"= {100 * busy_us / 1e6 / prof_wall:.1f}% (idle {100 - 100 * busy_us / 1e6 / prof_wall:.1f}%)")
+    print("device time by op/kernel (self, ms, calls):")
+    for key, us, count in rows[:15]:
+        if us > 0:
+            print(f"  {us / 1e3:9.3f}  {count:6d}  {key[:90]}")
+    prof.export_chrome_trace(str(out_dir / "trace.json"))
+    (out_dir / "key_averages.txt").write_text(
+        "".join(f"{us / 1e3:.3f} ms\t{count}\t{key}\n" for key, us, count in rows)
+    )
+    print(f"wrote {out_dir}/trace.json and key_averages.txt")
+
+
+if __name__ == "__main__":
+    main()

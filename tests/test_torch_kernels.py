@@ -1,0 +1,106 @@
+"""The CUDA sampling kernel's wrapper, and the kernel against its plain version.
+
+This file imports no JAX, so the card's tests run on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tests marked ``cuda`` skip where no CUDA device is present.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, sample_product_sum_reference
+from tsim_tpu_torch.compile.sample_tables import SampleTables
+from tsim_tpu_torch.kernels import build
+from tsim_tpu_torch.kernels import sample_eval as kernel
+from tsim_tpu_torch.models.distillation import distillation_d3
+
+REPO = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-5, 1e-8  # relative to the row's magnitude; f32 summation order differs
+
+
+@pytest.fixture(scope="module")
+def d3_rungs():
+    program = distillation_d3(p=0.05).load().program
+    return program.components[0].compiled_scalar_graphs
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rows(n_params, batch, seed, device="cpu"):
+    x = np.random.default_rng(seed).integers(0, 2, size=(batch, n_params)).astype(np.uint8)
+    return torch.from_numpy(x).to(device)
+
+
+def test_d3_rung_configurations(d3_rungs):
+    """The first three d3 rungs take the small configuration, the rest the wide one."""
+    assert [kernel.configuration(c.num_graphs) for c in d3_rungs] == ["small"] * 3 + ["wide"] * 3
+
+
+def test_wrapper_refuses_cpu_tensors(d3_rungs):
+    tables = SampleTables(d3_rungs[3])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.sample_product_sum(tables, torch.zeros((2, tables.n_params), dtype=torch.uint8))
+
+
+def test_cpu_dispatch_takes_plain_version(d3_rungs):
+    """CPU rows are evaluated without touching the kernel (its counts stay 0)."""
+    kernel.reset_launch_counts()
+    for csg in d3_rungs:
+        tables = SampleTables(csg)
+        mag = evaluate_abs_sample(tables, _rows(tables.n_params, 33, 1))
+        assert mag.shape == (33,) and mag.dtype == torch.float32 and mag.device.type == "cpu"
+        assert torch.isfinite(mag).all()
+    assert kernel.launch_counts == {"wide": 0, "small": 0}
+
+
+def test_build_is_keyed_by_sources():
+    lib = build.library_path()
+    assert lib.parent.parent == build.BUILD_ROOT
+    assert [p.name for p in build.sources()] == ["sample_eval.cu"]
+    assert lib.parent.name == build._digest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+def test_kernel_matches_plain_version(d3_rungs, cuda, batch):
+    kernel.reset_launch_counts()
+    for i, csg in enumerate(d3_rungs):
+        tables = SampleTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        got = kernel.sample_product_sum(tables, x)
+        want = sample_product_sum_reference(tables, x)
+        torch.cuda.synchronize()
+        scale = want.norm(dim=1, keepdim=True)
+        assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (i, batch)
+    assert kernel.launch_counts == {"wide": 3, "small": 3}
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_mismatched_inputs(d3_rungs, cuda):
+    tables = SampleTables(d3_rungs[3]).to(cuda)
+    with pytest.raises(ValueError):
+        kernel.sample_product_sum(tables, torch.zeros((4, tables.n_params + 1), dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError):
+        kernel.sample_product_sum(SampleTables(d3_rungs[3]), torch.zeros((4, tables.n_params), dtype=torch.uint8, device=cuda))
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run in full")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "FAIL" in proc.stdout

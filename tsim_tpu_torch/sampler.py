@@ -1,0 +1,317 @@
+"""Compiled samplers: autoregressive detector/measurement sampling on a torch device.
+
+Counterpart of ``tsim_tpu/sampler.py`` for programs that come as data
+(``program_io``). Each batch draws noise on the device, copies the direct
+outputs, runs every component's plugged-circuit ladder (one f32
+evaluation per rung, chain-rule Bernoulli draws), packs the bits along
+the shot axis, copies them to the host and unpacks them there.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from math import ceil
+
+import numpy as np
+import torch
+from torch import nn
+
+from .compile.sample_eval import evaluate_abs_sample, norm_deviation_tolerance
+from .compile.sample_tables import SampleTables
+from .noise.device_channels import DeviceChannelSampler
+from .ops.gf2 import static_take_columns
+
+
+def _long(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.int64).ravel())
+
+
+class ComponentTables(nn.Module):
+    """One component: its f-column selection and one SampleTables per rung."""
+
+    def __init__(self, component):
+        super().__init__()
+        self.register_buffer("f_selection", _long(component.f_selection))
+        self.rungs = nn.ModuleList(SampleTables(c) for c in component.compiled_scalar_graphs)
+
+
+class ProgramTables(nn.Module):
+    """A compiled program's device data; ``.to(device)`` moves all of it once."""
+
+    def __init__(self, program):
+        super().__init__()
+        self.num_outputs = int(program.num_outputs)
+        n_direct = len(np.asarray(program.direct_f_indices))
+        self.register_buffer("direct_f_indices", _long(program.direct_f_indices))
+        self.register_buffer(
+            "direct_flips", torch.as_tensor(np.asarray(program.direct_flips, np.uint8).ravel())
+        )
+        mask = program.direct_const_mask
+        mask = np.zeros(n_direct, bool) if mask is None else np.asarray(mask, bool)
+        self.has_const = bool(mask.any())
+        self.register_buffer("direct_const_mask", torch.as_tensor(mask))
+        self.has_reindex = program.output_reindex is not None
+        reindex = program.output_reindex if self.has_reindex else ()
+        self.register_buffer("output_reindex", _long(reindex))
+        self.components = nn.ModuleList(ComponentTables(c) for c in program.components)
+
+
+def _sample_component(comp: ComponentTables, f_params, generator, uniforms=None):
+    """Autoregressively sample one component's outputs.
+
+    Rung k's magnitude is the joint probability of the first k+1 output
+    bits, so each new bit is Bernoulli(p_one / mass) against the running
+    prefix probability ``mass``. A probe row (shot 0 with the new bit
+    forced to 0) rides along in every rung's evaluation to monitor
+    normalization. ``uniforms`` (an iterator of (shots,) float32 tensors,
+    one per rung) replaces the generator's draws.
+    Returns (bits (shots, n_rungs - 1) uint8, max norm deviation).
+    """
+    shots = f_params.shape[0]
+    device = f_params.device
+    ladder = comp.rungs
+    noise_bits = static_take_columns(f_params, comp.f_selection)
+    mass = evaluate_abs_sample(ladder[0], noise_bits)
+    drawn = torch.zeros((shots, len(ladder) - 1), dtype=torch.uint8, device=device)
+    worst = torch.zeros((), dtype=torch.float32, device=device)
+    pad_one = torch.ones((shots, 1), dtype=torch.uint8, device=device)
+    pad_zero = torch.zeros((1, 1), dtype=torch.uint8, device=device)
+
+    for k, rung in enumerate(ladder[1:]):
+        stacked = torch.cat(
+            [
+                torch.cat([noise_bits, drawn[:, :k], pad_one], dim=1),
+                torch.cat([noise_bits[:1], drawn[:1, :k], pad_zero], dim=1),
+            ],
+            dim=0,
+        )
+        magnitudes = evaluate_abs_sample(rung, stacked)
+        p_one, probe = magnitudes[:shots], magnitudes[-1]
+        worst = torch.maximum(worst, torch.abs((probe + p_one[0]) / mass[0] - 1.0))
+        if uniforms is None:
+            u = torch.rand((shots,), generator=generator, device=device, dtype=torch.float32)
+        else:
+            u = next(uniforms).to(device)
+        # 0/0 gives NaN, and u < NaN is False: such a shot draws bit 0.
+        bit = u < torch.clamp(p_one / mass, 0.0, 1.0)
+        drawn[:, k] = bit.to(torch.uint8)
+        mass = torch.where(bit, p_one, mass - p_one)
+
+    return drawn, worst
+
+
+def sample_program_with_deviation(tables: ProgramTables, f_params, generator, uniforms=None):
+    """Sample every output: ((B, num_outputs) uint8 in output order, (1,) max deviation).
+
+    ``uniforms`` optionally gives the per-rung draw uniforms, in component
+    then rung order, in place of ``generator``.
+    """
+    device = f_params.device
+    batch = f_params.shape[0]
+    max_dev = torch.zeros((1,), dtype=torch.float32, device=device)
+    if tables.num_outputs == 0:
+        return torch.zeros((batch, 0), dtype=torch.uint8, device=device), max_dev
+    draws = None if uniforms is None else iter(uniforms)
+    results = []
+    if len(tables.direct_f_indices):
+        if f_params.shape[1] == 0:
+            gathered = torch.zeros((batch, len(tables.direct_f_indices)), dtype=torch.uint8, device=device)
+        else:
+            gathered = static_take_columns(f_params, tables.direct_f_indices)
+        direct = gathered ^ tables.direct_flips
+        if tables.has_const:
+            direct = torch.where(tables.direct_const_mask, tables.direct_flips, direct)
+        results.append(direct)
+    for comp in tables.components:
+        bits, dev = _sample_component(comp, f_params, generator, draws)
+        max_dev = torch.maximum(max_dev, dev.reshape(1))
+        results.append(bits)
+    combined = torch.cat(results, dim=1)
+    if tables.has_reindex:
+        combined = static_take_columns(combined, tables.output_reindex)
+    return combined, max_dev
+
+
+def _pack_bitplanes(out: torch.Tensor) -> torch.Tensor:
+    """(B, n) 0/1 uint8 -> (n, ceil(B/8)) uint8, packed along shots, little bit order."""
+    batch, n = out.shape
+    b8 = (batch + 7) // 8
+    planes = out.T
+    if b8 * 8 != batch:
+        planes = torch.nn.functional.pad(planes, (0, b8 * 8 - batch))
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32, device=out.device)
+    return (planes.reshape(n, b8, 8).to(torch.int32) * weights).sum(dim=2).to(torch.uint8)
+
+
+def _check_norm_deviation(max_dev) -> None:
+    val = float(max_dev.reshape(-1)[0])
+    if np.isclose(val, 1):
+        raise ValueError(
+            "A vanishing marginal probability distribution was encountered "
+            "(normalization 0). This is likely the result of an underflow error."
+        )
+    if val > norm_deviation_tolerance():
+        warnings.warn(
+            "A marginal probability was not normalized correctly "
+            f"(normalization deviated from 1 by {val:.1e}). "
+            "This is likely a floating point precision issue.",
+            stacklevel=2,
+        )
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+class _CompiledSamplerBase:
+    """Shared sampling machinery over an :class:`~tsim_tpu_torch.program_io.ExportedProgram`."""
+
+    def __init__(self, exported, *, seed: int | None = None, device=None):
+        self.device = _resolve_device(device)
+        if seed is None:
+            seed = int(np.random.default_rng().integers(0, 2**30))
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+        self._program = exported.program
+        self._num_detectors = int(exported.num_detectors)
+        self._tables = ProgramTables(exported.program).to(self.device)
+        self._device_channels = DeviceChannelSampler(exported.noise, self.device)
+        # Largest normalization deviation of the last sample() call (the
+        # monitor warns above norm_deviation_tolerance()).
+        self.last_norm_deviation: float | None = None
+
+    def _peak_bytes_per_sample(self) -> int:
+        peak = max(8 * self._device_channels.num_f, self._device_channels.peak_bytes_per_shot)
+        for comp in self._program.components:
+            for c in comp.compiled_scalar_graphs:
+                largest = max(
+                    np.shape(c.node_phases.phases)[0] * 16,
+                    np.shape(c.halfpi_phases.coeffs)[0] * 4,
+                    np.shape(c.pi_products.psi_const)[0] * 4,
+                    np.shape(c.phase_pairs.alpha)[0] * 16,
+                )
+                peak = max(peak, c.num_graphs * largest * 3)
+        return max(peak, 1)
+
+    def _estimate_batch_size(self) -> int:
+        if self.device.type == "cuda":
+            available, _total = torch.cuda.mem_get_info(self.device)
+        else:
+            available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        return max(1, int(available * 0.5) // self._peak_bytes_per_sample())
+
+    def _sample_batches(self, shots: int, batch_size: int | None = None) -> np.ndarray:
+        if shots < 0:
+            raise ValueError(f"shots must be non-negative, got {shots}")
+        if batch_size is not None and batch_size < 1:
+            raise ValueError(f"batch_size must be at least 1, got {batch_size}")
+        num_outputs = self._program.num_outputs
+        if shots == 0:
+            return np.empty((0, num_outputs), dtype=np.bool_)
+        if not self._program.components:
+            raise NotImplementedError(
+                "fully-direct programs (no components) sample through tsim_tpu's "
+                "native frame sampler, which the port does not have yet"
+            )
+        if batch_size is None:
+            num_batches = max(1, ceil(shots / self._estimate_batch_size()))
+            batch_size = ceil(shots / num_batches)
+        else:
+            num_batches = ceil(shots / batch_size)
+
+        result = np.empty((shots, num_outputs), dtype=np.bool_)
+        max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        row = 0
+        for _ in range(num_batches):
+            take = min(batch_size, shots - row)
+            dev = self._sample_batch(batch_size, result[row : row + take])
+            max_dev = torch.maximum(max_dev, dev)
+            row += take
+        self.last_norm_deviation = float(max_dev[0])
+        _check_norm_deviation(max_dev)
+        return result
+
+    def _sample_batch(self, batch_size: int, dest: np.ndarray, stage=None) -> torch.Tensor:
+        """Sample one batch and write its first ``len(dest)`` shots into ``dest``.
+
+        Stages: noise draw, ladder, bitplane pack, copy to the host, unpack
+        there. ``stage(name)``, if given, is called as each one ends, with
+        name "noise", "ladder", "pack", "d2h" or "unpack" (a profiler's
+        hook). Returns the batch's (1,) max norm deviation, on the device.
+        """
+        mark = stage or (lambda name: None)
+        f_params = self._device_channels.sample(self._generator, batch_size)
+        mark("noise")
+        out, dev = sample_program_with_deviation(self._tables, f_params, self._generator)
+        mark("ladder")
+        packed = _pack_bitplanes(out)
+        mark("pack")
+        host = packed.cpu().numpy()
+        mark("d2h")
+        dest[:] = np.unpackbits(host, axis=1, bitorder="little")[:, : len(dest)].T
+        mark("unpack")
+        return dev
+
+
+class CompiledMeasurementSampler(_CompiledSamplerBase):
+    """Samples measurement outcomes of a measurement program."""
+
+    def sample(self, shots: int, *, batch_size: int | None = None) -> np.ndarray:
+        return self._sample_batches(shots, batch_size)
+
+
+def _maybe_bit_pack(array: np.ndarray, *, bit_packed: bool) -> np.ndarray:
+    if not bit_packed:
+        return array
+    return np.packbits(array.astype(np.bool_), axis=1, bitorder="little")
+
+
+class CompiledDetectorSampler(_CompiledSamplerBase):
+    """Samples detector and observable outcomes of a detector program."""
+
+    def sample(
+        self,
+        shots: int,
+        *,
+        batch_size: int | None = None,
+        bit_packed: bool = False,
+        postselection_mask: np.ndarray | None = None,
+        use_detector_reference_sample: bool = False,
+        use_observable_reference_sample: bool = False,
+        prepend_observables: bool = False,
+        append_observables: bool = False,
+        separate_observables: bool = False,
+    ):
+        if separate_observables and (prepend_observables or append_observables):
+            raise ValueError(
+                "separate_observables=True is mutually exclusive with the "
+                "prepend/append observable layouts"
+            )
+        if postselection_mask is not None:
+            raise NotImplementedError(
+                "postselection_mask: the postselection prefilter "
+                "(tsim_tpu sampler._sample_batches_with_postselection) is not ported yet"
+            )
+        if use_detector_reference_sample or use_observable_reference_sample:
+            raise NotImplementedError(
+                "reference samples (tsim_tpu sampler._compute_reference_sample) "
+                "are not ported yet"
+            )
+        samples = self._sample_batches(shots, batch_size)
+        det = samples[:, : self._num_detectors]
+        obs = samples[:, self._num_detectors :]
+        if prepend_observables and append_observables:
+            return _maybe_bit_pack(np.concatenate([obs, det, obs], axis=1), bit_packed=bit_packed)
+        if append_observables:
+            return _maybe_bit_pack(samples, bit_packed=bit_packed)
+        if prepend_observables:
+            return _maybe_bit_pack(np.concatenate([obs, det], axis=1), bit_packed=bit_packed)
+        if separate_observables:
+            return (
+                _maybe_bit_pack(det, bit_packed=bit_packed),
+                _maybe_bit_pack(obs, bit_packed=bit_packed),
+            )
+        return _maybe_bit_pack(det, bit_packed=bit_packed)
