@@ -1,13 +1,23 @@
-"""Export d3 distillation, compiled by tsim_tpu, as data for tsim_tpu_torch.
+"""Export programs compiled by tsim_tpu, with reference data, for tsim_tpu_torch.
 
-Compiles ``tsim_tpu.models.distillation.distillation_d3(p=0.05)`` with
-``compile_detector_sampler(seed=0)``, converts the program and its noise
-channels with ``tsim_tpu_torch.program_io.from_reference``, and adds the
-per-output means of tsim_tpu's own sampler (detectors then observables)
-as the physics reference for runs where JAX is absent. Needs JAX; runs on
-the CPU:
+Three programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
 
-    JAX_PLATFORMS=cpu python dev/export_torch_program.py
+* ``d3``: ``distillation_d3(p=0.05).compile_detector_sampler(seed=0)``,
+  with the per-output means of tsim_tpu's own sampler (detectors then
+  observables) at 2^18 shots, as the physics reference;
+* ``d3_state_probs``: ``distillation_d3(p=0.05).compile_state_probs(seed=0)``,
+  with replay data: 4096 noise rows f from tsim_tpu's channel sampler, 4
+  states (the first 4 records of tsim_tpu's ``compile_sampler(seed=0)`` on
+  the same circuit) and tsim_tpu's ``_probability_body`` for each;
+* ``cultivation``: ``cultivation_d3(p=0.001, checks=2)
+  .compile_detector_sampler(seed=0)``, with replay data: 4096 shots of
+  tsim_tpu's exact sampling (batch 0 of seed 0), their noise uniforms,
+  their per-rung draw uniforms and the resulting output bits.
+
+Each program is converted with ``tsim_tpu_torch.program_io.from_reference``.
+Needs JAX; runs on the CPU, where tsim_tpu evaluates exactly:
+
+    JAX_PLATFORMS=cpu python dev/export_torch_program.py [--program NAME]
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REFERENCE_SHOTS = 1 << 18
 REFERENCE_BATCH = 1 << 16
+REPLAY_ROWS = 4096
+REPLAY_STATES = 4
 SEED = 0
 
 
@@ -32,6 +44,20 @@ def compile_d3():
     return distillation_d3(p=0.05).compile_detector_sampler(seed=SEED)
 
 
+def compile_d3_state_probs():
+    """The tsim_tpu state-probability estimator of d3 distillation at p = 0.05, seed 0."""
+    from tsim_tpu.models.distillation import distillation_d3
+
+    return distillation_d3(p=0.05).compile_state_probs(seed=SEED)
+
+
+def compile_cultivation():
+    """The tsim_tpu detector sampler of 2-check d3 cultivation at p = 0.001, seed 0."""
+    from tsim_tpu.models.cultivation import cultivation_d3
+
+    return cultivation_d3(p=0.001, checks=2).compile_detector_sampler(seed=SEED)
+
+
 def export_sampler(sampler):
     """A tsim_tpu sampler's program and noise as a tsim_tpu_torch ExportedProgram."""
     from tsim_tpu_torch.program_io import from_reference
@@ -39,23 +65,59 @@ def export_sampler(sampler):
     return from_reference(sampler._program, sampler._channel_sampler, sampler._num_detectors)
 
 
-def main() -> None:
-    from tsim_tpu_torch.models.distillation import D3_PROGRAM
-    from tsim_tpu_torch.program_io import save_npz
+def jax_replay(sampler, batch: int, seed: int):
+    """tsim_tpu's batch-0 randomness and outputs for ``sampler`` at ``seed``.
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", default=str(D3_PROGRAM))
-    parser.add_argument("--shots", type=int, default=REFERENCE_SHOTS)
-    args = parser.parse_args()
+    Replays the sampler's key schedule: the per-batch ``fold_in`` of the
+    noise and sampling keys (``tsim_tpu/sampler.py:156-157``), the noise
+    uniforms, then one ``split`` per rung for the Bernoulli draws
+    (``sampler.py:75``; ``bernoulli(key, p)`` is ``uniform(key) < p``).
+    Returns (noise uniforms (batch, C) float32, draw uniforms (one (batch,)
+    float32 array per rung past the first, component by component), output
+    bits (batch, num_outputs) uint8, max norm deviation).
+    """
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
 
-    t0 = time.perf_counter()
+    import tsim_tpu.sampler as jax_sampler
+
+    program, dc = sampler._program, sampler._device_channels
+    base = jax.random.key(seed)
+    k_noise, k_sample = jax.random.fold_in(base, 0), jax.random.fold_in(base, 1)
+    u_noise = np.asarray(jax.random.uniform(k_noise, (batch, dc.num_channels), dtype=jnp.float32))
+    f = dc.sample(k_noise, batch)
+    bits, dev = jax_sampler.sample_program_with_deviation(program, f, k_sample)
+    draws, key = [], k_sample
+    for comp in program.components:
+        for _ in comp.compiled_scalar_graphs[1:]:
+            key, dk = jax.random.split(key)
+            draws.append(np.asarray(jax.random.uniform(dk, (batch,), dtype=jnp.float32)))
+    return u_noise, draws, np.asarray(bits), float(np.asarray(dev)[0])
+
+
+def state_probs_replay(sp, rows: int, n_states: int) -> dict:
+    """Noise rows, states and tsim_tpu's ``_probability_body`` values for them."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tsim_tpu.models.distillation import distillation_d3
+
+    states = distillation_d3(p=0.05).compile_sampler(seed=SEED).sample(n_states)
+    f = np.asarray(sp._channel_sampler.sample(rows), np.uint8)
+    probs = np.stack(
+        [np.asarray(sp._probability_body(jnp.asarray(f), s), np.float32) for s in states]
+    )
+    return {"f": f, "states": np.asarray(states, np.uint8), "probabilities": probs}
+
+
+def _d3(args):
     sampler = compile_d3()
     exported = export_sampler(sampler)
-    print(f"compiled in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     samples = sampler.sample(args.shots, batch_size=REFERENCE_BATCH, append_observables=True)
     print(f"sampled {args.shots} shots in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    exported = dataclasses.replace(
+    return dataclasses.replace(
         exported,
         reference_means=samples.mean(axis=0),
         meta={
@@ -66,8 +128,76 @@ def main() -> None:
             "reference_shots": args.shots,
         },
     )
-    save_npz(args.out, exported)
-    print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)", file=sys.stderr)
+
+
+def _d3_state_probs(args):
+    sp = compile_d3_state_probs()
+    t0 = time.perf_counter()
+    replay = state_probs_replay(sp, REPLAY_ROWS, REPLAY_STATES)
+    print(f"state-probability replay in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return dataclasses.replace(
+        export_sampler(sp),
+        meta={
+            "circuit": "tsim_tpu.models.distillation.distillation_d3(p=0.05)",
+            "compile": f"compile_state_probs(seed={SEED})",
+            "replay": "f: channel_sampler.sample(4096) of the estimator; states: "
+            f"compile_sampler(seed={SEED}).sample(4); probabilities[i]: "
+            "_probability_body(f, states[i]), tsim_tpu on the CPU (exact evaluation)",
+        },
+        replay=replay,
+    )
+
+
+def _cultivation(args):
+    import numpy as np
+
+    sampler = compile_cultivation()
+    t0 = time.perf_counter()
+    u_noise, draws, bits, dev = jax_replay(sampler, REPLAY_ROWS, SEED)
+    print(f"cultivation replay in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return dataclasses.replace(
+        export_sampler(sampler),
+        meta={
+            "circuit": "tsim_tpu.models.cultivation.cultivation_d3(p=0.001, checks=2)",
+            "compile": f"compile_detector_sampler(seed={SEED})",
+            "replay": f"batch 0 of seed {SEED} at batch size 4096 (dev/export_torch_program.py::"
+            "jax_replay), tsim_tpu on the CPU (exact evaluation)",
+            "replay_norm_deviation": dev,
+        },
+        replay={
+            "noise_uniforms": u_noise,
+            "draw_uniforms": np.stack(draws),
+            "bits": bits.astype(np.uint8),
+        },
+    )
+
+
+PROGRAMS = {"d3": _d3, "d3_state_probs": _d3_state_probs, "cultivation": _cultivation}
+
+
+def main() -> None:
+    from tsim_tpu_torch.models.cultivation import CULTIVATION_PROGRAM
+    from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
+    from tsim_tpu_torch.program_io import save_npz
+
+    paths = {
+        "d3": D3_PROGRAM,
+        "d3_state_probs": D3_STATE_PROBS_PROGRAM,
+        "cultivation": CULTIVATION_PROGRAM,
+    }
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--program", choices=[*PROGRAMS, "all"], default="all")
+    parser.add_argument("--shots", type=int, default=REFERENCE_SHOTS, help="d3 reference shots")
+    args = parser.parse_args()
+    for name in PROGRAMS if args.program == "all" else [args.program]:
+        t0 = time.perf_counter()
+        exported = PROGRAMS[name](args)
+        save_npz(paths[name], exported)
+        print(
+            f"wrote {paths[name]} ({os.path.getsize(paths[name])} bytes) "
+            f"in {time.perf_counter() - t0:.1f} s",
+            file=sys.stderr,
+        )
 
 
 if __name__ == "__main__":

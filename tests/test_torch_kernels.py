@@ -1,4 +1,6 @@
-"""The CUDA sampling kernel's wrapper, and the kernel against its plain version.
+"""The CUDA kernels' wrappers, and each kernel against its plain version:
+the f32 sampling kernel (``sample_eval.cu``) and the exact kernels
+(``exact_eval.cu``).
 
 This file imports no JAX, so the card's tests run on a machine without it:
 
@@ -15,10 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+from tsim_tpu_torch.compile.evaluate import evaluate_abs
+from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
+from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, sample_product_sum_reference
 from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import build
+from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.kernels import sample_eval as kernel
+from tsim_tpu_torch.models.cultivation import cultivation_d3
 from tsim_tpu_torch.models.distillation import distillation_d3
 
 REPO = Path(__file__).resolve().parents[1]
@@ -68,7 +75,7 @@ def test_cpu_dispatch_takes_plain_version(d3_rungs):
 def test_build_is_keyed_by_sources():
     lib = build.library_path()
     assert lib.parent.parent == build.BUILD_ROOT
-    assert [p.name for p in build.sources()] == ["sample_eval.cu"]
+    assert [p.name for p in build.sources()] == ["exact_eval.cu", "sample_eval.cu"]
     assert lib.parent.name == build._digest()
 
 
@@ -85,6 +92,77 @@ def test_kernel_matches_plain_version(d3_rungs, cuda, batch):
         scale = want.norm(dim=1, keepdim=True)
         assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (i, batch)
     assert kernel.launch_counts == {"wide": 3, "small": 3}
+
+
+def _exact_rungs():
+    """(name, rung) for every rung of the three committed programs."""
+    out = []
+    for label, exported in (
+        ("d3", distillation_d3(p=0.05).load()),
+        ("d3_state_probs", distillation_d3(p=0.05).load_state_probs()),
+        ("cultivation", cultivation_d3(p=0.001, checks=2).load()),
+    ):
+        for comp in exported.program.components:
+            out += [(f"{label}[{i}]", c) for i, c in enumerate(comp.compiled_scalar_graphs)]
+    return out
+
+
+@pytest.fixture(scope="module")
+def exact_rungs():
+    return _exact_rungs()
+
+
+def test_exact_rungs_reach_all_four_kernels(exact_rungs):
+    """The committed programs reach every exact kernel: K5 and K7a on the
+    dyadic rungs, K6 and K7b on the approximate ones."""
+    reached = {
+        f"{'approx' if ExactTables(c).approximate else 'exact'}_"
+        f"{exact_kernel.configuration(c.num_graphs)}"
+        for _, c in exact_rungs
+    }
+    assert reached == set(exact_kernel.launch_counts)
+
+
+def test_exact_wrappers_refuse_cpu_tensors(exact_rungs):
+    tables = ExactTables(exact_rungs[-1][1])
+    x = torch.zeros((2, tables.n_params), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        exact_kernel.exact_partials(tables, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+def test_exact_kernels_match_plain_version(exact_rungs, cuda, batch):
+    """Every rung of the committed programs: exact kernels (K5, K7a) give the
+    plain version's magnitudes bit for bit (an exact sum in Z[w] is the same
+    in any order); approximate ones (K6, K7b) agree within rtol 1e-5 of the
+    row's magnitude (f32 summation order differs)."""
+    exact_kernel.reset_launch_counts()
+    for i, (name, csg) in enumerate(exact_rungs):
+        tables = ExactTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        got = evaluate_abs_exact(tables, x)
+        want = evaluate_abs(tables.circuit(), x)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), name
+        if tables.approximate:
+            assert ((got - want).abs() <= ATOL + RTOL * want).all(), (name, batch)
+        else:
+            assert torch.equal(got, want), (name, batch)
+    assert min(exact_kernel.launch_counts.values()) > 0
+
+
+@pytest.mark.cuda
+def test_exact_kernels_reject_mismatched_inputs(exact_rungs, cuda):
+    tables = ExactTables(exact_rungs[-1][1]).to(cuda)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_partials(
+            tables, torch.zeros((4, tables.n_params + 1), dtype=torch.uint8, device=cuda)
+        )
+    with pytest.raises(ValueError, match="approximate"):
+        exact_kernel.approx_partials(
+            tables, torch.zeros((4, tables.n_params), dtype=torch.uint8, device=cuda)
+        )
 
 
 @pytest.mark.cuda

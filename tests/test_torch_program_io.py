@@ -1,8 +1,11 @@
-"""Program conversion and ``.npz`` I/O of the port, and the committed d3 program.
+"""Program conversion and ``.npz`` I/O of the port, and the committed programs.
 
-The committed ``distillation_d3_p0.05.npz`` must equal, array for array, a
-fresh export from tsim_tpu; and the port must load and sample it in a
-process where importing JAX fails.
+Each committed program (``distillation_d3_p0.05.npz``,
+``distillation_d3_p0.05_state_probs.npz``,
+``cultivation_d3_p0.001_checks2.npz``) must equal, array for array, a fresh
+export from tsim_tpu, apart from the reference data that tsim_tpu sampled
+once; and the port must load and run them in a process where importing
+JAX fails.
 """
 
 import subprocess
@@ -14,9 +17,16 @@ import numpy as np
 import pytest
 
 import tsim_tpu
-from dev.export_torch_program import compile_d3, export_sampler
+from dev.export_torch_program import (
+    REPLAY_ROWS,
+    compile_cultivation,
+    compile_d3,
+    compile_d3_state_probs,
+    export_sampler,
+)
 from tsim_tpu_torch import program_io
-from tsim_tpu_torch.models.distillation import D3_PROGRAM
+from tsim_tpu_torch.models.cultivation import CULTIVATION_PROGRAM
+from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -100,6 +110,48 @@ def test_committed_d3_equals_fresh_export(d3_sampler):
     assert [c.n_params for c in rungs] == [6, 7, 8, 9, 10, 11]
 
 
+@pytest.mark.parametrize("path", [D3_STATE_PROBS_PROGRAM, CULTIVATION_PROGRAM], ids=lambda p: p.stem)
+def test_round_trip_committed_replays(path, tmp_path):
+    """The committed programs with replay data survive save and load."""
+    committed = program_io.load_npz(path)
+    assert committed.replay and committed.meta["replay"]
+    copy = tmp_path / path.name
+    program_io.save_npz(copy, committed)
+    _assert_same(program_io.load_npz(copy), committed)
+
+
+def _replay_skip(exported):
+    return ("meta", *(f"replay.{k}" for k in exported.replay))
+
+
+def test_committed_state_probs_equals_fresh_export():
+    committed = program_io.load_npz(D3_STATE_PROBS_PROGRAM)
+    _assert_same(committed, export_sampler(compile_d3_state_probs()), skip=_replay_skip(committed))
+    prog = committed.program
+    assert prog.num_outputs == 35 and len(prog.direct_f_indices) == 0
+    rungs = prog.components[0].compiled_scalar_graphs
+    assert [(c.num_graphs, c.n_params) for c in rungs] == [(1, 21), (172, 56)]
+    r = committed.replay
+    assert r["f"].shape == (REPLAY_ROWS, 21) and r["states"].shape == (4, 35)
+    probs = r["probabilities"]
+    assert probs.shape == (4, REPLAY_ROWS) and ((probs >= 0) & (probs <= 1)).all()
+    assert (probs > 0).any(axis=1).all()
+
+
+def test_committed_cultivation_equals_fresh_export():
+    committed = program_io.load_npz(CULTIVATION_PROGRAM)
+    _assert_same(committed, export_sampler(compile_cultivation()), skip=_replay_skip(committed))
+    prog = committed.program
+    assert committed.num_detectors == 11 and prog.num_outputs == 12
+    rungs = prog.components[0].compiled_scalar_graphs
+    assert [c.num_graphs for c in rungs] == [1, 4, 168, 205, 235, 32, 32, 32, 32, 307]
+    r = committed.replay
+    assert r["noise_uniforms"].shape == (REPLAY_ROWS, len(committed.noise.channels))
+    assert r["draw_uniforms"].shape == (len(rungs) - 1, REPLAY_ROWS)
+    assert r["bits"].shape == (REPLAY_ROWS, 12) and r["bits"].dtype == np.uint8
+    assert committed.meta["replay_norm_deviation"] <= 1e-5
+
+
 def test_port_runs_without_jax():
     script = textwrap.dedent(
         """
@@ -109,6 +161,14 @@ def test_port_runs_without_jax():
         out = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cpu").sample(
             1024, batch_size=512, append_observables=True)
         assert out.shape == (1024, 20), out.shape
+        d3 = distillation_d3(p=0.05)
+        state = d3.load_state_probs().replay["states"][1]
+        p = d3.compile_state_probs(seed=0, device="cpu").probability_of(state, batch_size=64)
+        assert p.shape == (64,), p.shape
+        from tsim_tpu_torch.models import cultivation_d3
+        out = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(
+            seed=0, device="cpu", evaluation="exact").sample(64, batch_size=64)
+        assert out.shape == (64, 11), out.shape
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "tsim_tpu.")) or m == "tsim_tpu"]
         assert bad == ["jax"], bad
         print("ok")

@@ -22,7 +22,8 @@ from tsim_tpu.compile.compile import compile_scalar_graphs
 from tsim_tpu.compile.evaluate import evaluate_abs
 from tsim_tpu.zx.graph import ZXGraph
 from dev.export_torch_program import compile_d3
-from tsim_tpu_torch.compile import sample_eval, sample_tables
+from tsim_tpu_torch.compile import evaluate, sample_eval, sample_tables
+from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import sample_eval as kernel
 from tsim_tpu_torch.program_io import rung_from_reference
@@ -158,14 +159,37 @@ def test_kernel_configuration_cutoff_matches_tsim_tpu():
 
 
 def test_ineligible_rung_raises():
+    """A rung that fails sample_eligible takes the exact route, as in
+    tsim_tpu's evaluate_abs_sample; only f32 tables built for it by hand
+    raise."""
     g = ZXGraph()
     g.scalar.add_node(0.25, ["f0"])
-    g.scalar.power2 = 400
+    g.scalar.power2 = 230  # sqrt(2)^230 = 2^115: past the f32 budget of sample_eligible, inside the f32 range
     big = compile_scalar_graphs([g], ["f0"])
     assert not sample_tables.sample_eligible(big)
-    tables = SampleTables(rung_from_reference(big))
-    with pytest.raises(NotImplementedError, match="evaluate_abs_auto"):
-        sample_eval.evaluate_abs_sample(tables, torch.zeros((3, 1), dtype=torch.uint8))
+    port = rung_from_reference(big)
+    tables = sample_eval.rung_tables(port)
+    assert isinstance(tables, ExactTables)
+    x = torch.from_numpy(_rows(1, 4, 0))
+    got = sample_eval.evaluate_abs_sample(tables, x)
+    assert torch.isfinite(got).all() and (got > 2.0**114).all()
+    np.testing.assert_array_equal(got.numpy(), evaluate.evaluate_abs(port, x).numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(evaluate_abs(big, x.numpy())), rtol=5e-6)
+    with pytest.raises(ValueError, match="rung_tables"):
+        sample_eval.evaluate_abs_sample(SampleTables(port), x)
+
+
+@pytest.mark.parametrize("evaluation", ["f32", "exact"])
+def test_rung_tables_follow_the_mode(d3_rungs, evaluation):
+    """f32 mode keeps eligible rungs on the f32 kernel; exact mode sends every
+    rung to the exact evaluator (tsim_tpu's TSIM_TPU_SAMPLE_EVAL=exact)."""
+    kinds = {type(sample_eval.rung_tables(rung_from_reference(c), evaluation)) for c in d3_rungs}
+    assert kinds == {SampleTables if evaluation == "f32" else ExactTables}
+    assert sample_eval.norm_deviation_tolerance(evaluation) == (
+        3e-3 if evaluation == "f32" else 1e-5
+    )
+    with pytest.raises(ValueError, match="evaluation"):
+        sample_eval.rung_tables(rung_from_reference(d3_rungs[0]), "f64")
 
 
 def test_zero_graphs_give_zeros():

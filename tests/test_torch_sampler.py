@@ -1,18 +1,15 @@
 """The port's sampler against tsim_tpu's, bit for bit on injected randomness.
 
 JAX's threefry and torch's generators give different streams, so the
-test replays tsim_tpu's key schedule for one batch: the per-batch
-``fold_in`` of the noise and sampling keys (``sampler.py:156-157``), the
-noise uniforms, then one ``split`` per rung for the Bernoulli draws
-(``sampler.py:75``; ``bernoulli(key, p)`` is ``uniform(key) < p``). The
-port gets the same uniforms. tsim_tpu on the CPU evaluates exactly, the
-port in f32, so a draw may differ only where the uniform lies within
-1e-4 of the probability; such rows must be rare.
+test replays tsim_tpu's key schedule for one batch
+(``dev/export_torch_program.py::jax_replay``) and gives the port the same
+uniforms. tsim_tpu on the CPU evaluates exactly. In f32 mode a draw may
+differ only where the uniform lies within 1e-4 of the probability, and
+such rows must be rare; in exact mode every bit must be equal.
 """
 
 import warnings
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,30 +17,14 @@ import torch
 
 import tsim_tpu
 import tsim_tpu.sampler as jax_sampler_mod
-from dev.export_torch_program import compile_d3, export_sampler
+from dev.export_torch_program import compile_cultivation, compile_d3, export_sampler, jax_replay
 from tsim_tpu_torch import sampler as port_sampler
 from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample
-from tsim_tpu_torch.models import distillation_d3
+from tsim_tpu_torch.models import cultivation_d3, distillation_d3
 from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
 from tsim_tpu_torch.ops.gf2 import static_take_columns
 
 BORDER = 1e-4
-
-
-def _jax_replay(sampler, batch, seed):
-    """tsim_tpu's batch-0 randomness and outputs: (noise u, draw u's, bits, deviation)."""
-    program, dc = sampler._program, sampler._device_channels
-    base = jax.random.key(seed)
-    k_noise, k_sample = jax.random.fold_in(base, 0), jax.random.fold_in(base, 1)
-    u_noise = np.asarray(jax.random.uniform(k_noise, (batch, dc.num_channels), dtype=jnp.float32))
-    f = dc.sample(k_noise, batch)
-    bits, dev = jax_sampler_mod.sample_program_with_deviation(program, f, k_sample)
-    draws, key = [], k_sample
-    for comp in program.components:
-        for _ in comp.compiled_scalar_graphs[1:]:
-            key, dk = jax.random.split(key)
-            draws.append(np.asarray(jax.random.uniform(dk, (batch,), dtype=jnp.float32)))
-    return u_noise, draws, np.asarray(bits), float(np.asarray(dev)[0])
 
 
 def _borderline_rows(tables, f, draws):
@@ -64,20 +45,24 @@ def _borderline_rows(tables, f, draws):
     return near.numpy()
 
 
-def _compare_with_jax(sampler, batch, seed):
-    u_noise, draws, want, jax_dev = _jax_replay(sampler, batch, seed)
-    exported = export_sampler(sampler)
-    tables = port_sampler.ProgramTables(exported.program)
+def _port_replay(exported, u_noise, draws, evaluation="f32"):
+    """The port's bits and norm deviation on tsim_tpu's uniforms."""
+    tables = port_sampler.ProgramTables(exported.program, evaluation)
     noise = DeviceChannelSampler(exported.noise, "cpu")
-    f = noise.sample_from_uniforms(torch.from_numpy(u_noise.copy()))
-    draws_t = [torch.from_numpy(d.copy()) for d in draws]
+    f = noise.sample_from_uniforms(torch.from_numpy(np.array(u_noise)))
+    draws_t = [torch.from_numpy(np.array(d)) for d in draws]
     got, dev = port_sampler.sample_program_with_deviation(tables, f, None, uniforms=draws_t)
-    got = got.numpy()
+    return got.numpy(), float(dev[0]), tables, f, draws_t
+
+
+def _compare_with_jax(sampler, batch, seed):
+    u_noise, draws, want, jax_dev = jax_replay(sampler, batch, seed)
+    got, dev, tables, f, draws_t = _port_replay(export_sampler(sampler), u_noise, draws)
     assert got.shape == want.shape and got.dtype == np.uint8
     mismatched = (got != want).any(axis=1)
     near = _borderline_rows(tables, f, draws_t)
     assert not (mismatched & ~near).any(), np.flatnonzero(mismatched & ~near)
-    return got, float(dev[0]), jax_dev, near.mean()
+    return got, dev, jax_dev, near.mean()
 
 
 def test_d3_slice_matches_tsim_tpu_bits():
@@ -182,9 +167,62 @@ def test_norm_deviation_check():
         warnings.simplefilter("always")
         port_sampler._check_norm_deviation(torch.tensor([1e-2]))
     assert any("not normalized" in str(w.message) for w in caught)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        port_sampler._check_norm_deviation(torch.tensor([1e-4]), "exact")
+    assert any("not normalized" in str(w.message) for w in caught)
 
 
 def test_default_batch_size_on_cpu(d3):
     s = d3.compile_detector_sampler(seed=0, device="cpu")
     assert s._estimate_batch_size() >= 1
     assert s.sample(100).shape == (100, 15)
+
+
+@pytest.fixture(scope="module")
+def cultivation_sampler():
+    return compile_cultivation()
+
+
+def test_d3_exact_mode_matches_tsim_tpu_bits():
+    """Exact mode: every one of 4096 shots equal to tsim_tpu's, no borderline exemption."""
+    sampler = compile_d3()
+    u_noise, draws, want, jax_dev = jax_replay(sampler, 4096, 0)
+    got, dev, *_ = _port_replay(export_sampler(sampler), u_noise, draws, "exact")
+    np.testing.assert_array_equal(got, want)
+    assert dev <= 1e-5 and jax_dev <= 1e-5
+
+
+def test_cultivation_exact_mode_matches_tsim_tpu_bits(cultivation_sampler):
+    u_noise, draws, want, jax_dev = jax_replay(cultivation_sampler, 512, 3)
+    exported = export_sampler(cultivation_sampler)
+    got, dev, *_ = _port_replay(exported, u_noise, draws, "exact")
+    assert got.shape == (512, 12)
+    np.testing.assert_array_equal(got, want)
+    assert dev <= 1e-5 and jax_dev <= 1e-5
+
+
+def test_committed_cultivation_replay_matches():
+    """The committed replay of tsim_tpu's exact sampling, reproduced bit for
+    bit on the CPU on its first 1024 shots (each shot depends only on its own
+    uniforms; chip_smoke.py checks all 4096 on the card)."""
+    exported = cultivation_d3(checks=2).load()
+    r = exported.replay
+    rows = 1024
+    got, dev, *_ = _port_replay(
+        exported, r["noise_uniforms"][:rows], [d[:rows] for d in r["draw_uniforms"]], "exact"
+    )
+    np.testing.assert_array_equal(got, r["bits"][:rows])
+    assert dev <= 1e-5
+
+
+def test_exact_mode_sampler_runs(d3):
+    s = d3.compile_detector_sampler(seed=2, device="cpu", evaluation="exact")
+    out = s.sample(700, batch_size=256, append_observables=True)
+    assert out.shape == (700, 20) and out.dtype == np.bool_
+    assert s.last_norm_deviation <= port_sampler.norm_deviation_tolerance("exact") == 1e-5
+    assert all(
+        type(rung).__name__ == "ExactTables" for comp in s._tables.components for rung in comp.rungs
+    )
+    with pytest.raises(ValueError, match="evaluation"):
+        d3.compile_detector_sampler(seed=0, device="cpu", evaluation="f64")

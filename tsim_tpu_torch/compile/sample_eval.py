@@ -1,15 +1,20 @@
-"""The f32 sampling evaluator: plain PyTorch version and dispatch.
+"""The sampling evaluator: the f32 plain PyTorch version and the dispatch.
 
 Counterpart of the dispatch half of ``tsim_tpu``'s
 ``compile/pallas_sample.py`` (``evaluate_abs_sample_f32``,
 ``evaluate_abs_sample``, ``norm_deviation_tolerance``). Per shot row and
-per graph it forms the complex f32 product of the four term families
-times the prefolded prefactor, sums over graphs, and returns the
-magnitude rescaled by ``2^bias``.
+per graph the f32 evaluator forms the complex f32 product of the four
+term families times the prefolded prefactor, sums over graphs, and
+returns the magnitude rescaled by ``2^bias``.
 
-A CPU tensor runs the plain version below; a CUDA tensor runs the
-hand-written kernel (``kernels/sample_eval.py``), which raises if it
-cannot be built or launched.
+Each rung is evaluated in one of two modes, chosen when its tables are
+built (:func:`rung_tables`): "f32" (the sampling kernel) or "exact" (the
+exact kernels, ``compile/exact_eval.py``). A rung that fails
+``sample_eligible`` is always exact; ``evaluation="exact"`` makes every
+rung exact, as ``tsim_tpu``'s ``TSIM_TPU_SAMPLE_EVAL=exact`` does.
+
+A CPU tensor runs the plain version; a CUDA tensor runs the hand-written
+kernels (``kernels/``), which raise if they cannot be built or launched.
 """
 
 from __future__ import annotations
@@ -17,17 +22,35 @@ from __future__ import annotations
 import torch
 
 from ..kernels import sample_eval as _kernel
-from .sample_tables import _SQRT_HALF, SampleTables, unpack_words
+from .exact_eval import evaluate_abs_exact
+from .exact_tables import ExactTables
+from .sample_tables import _SQRT_HALF, SampleTables, sample_eligible, unpack_words
+
+EVALUATIONS = ("f32", "exact")
 
 
-def norm_deviation_tolerance() -> float:
+def check_evaluation(evaluation: str) -> str:
+    if evaluation not in EVALUATIONS:
+        raise ValueError(f"evaluation must be one of {EVALUATIONS}, got {evaluation!r}")
+    return evaluation
+
+
+def norm_deviation_tolerance(evaluation: str = "f32") -> float:
     """Warn threshold of the sampler's normalization monitor.
 
-    The port evaluates every rung in f32 (the exact path is not ported
-    yet), so this is ``tsim_tpu``'s f32 band: products accumulate about
-    ``T * 2^-23`` relative error plus cancellation in the graph sum.
+    The exact path deviates only by the final float conversion (about
+    1e-7); f32 products accumulate about ``T * 2^-23`` relative error plus
+    cancellation in the graph sum, so f32 mode gets a wider band.
     """
-    return 3e-3
+    return 3e-3 if check_evaluation(evaluation) == "f32" else 1e-5
+
+
+def rung_tables(circuit, evaluation: str = "f32") -> SampleTables | ExactTables:
+    """The evaluator tables of one rung: exact in exact mode or when the rung
+    fails ``sample_eligible``, f32 otherwise."""
+    if check_evaluation(evaluation) == "exact" or not sample_eligible(circuit):
+        return ExactTables(circuit)
+    return SampleTables(circuit)
 
 
 def _rot_staged(re, im, k):
@@ -137,14 +160,18 @@ def evaluate_abs_sample_f32(tables: SampleTables, x: torch.Tensor) -> torch.Tens
     return _magnitude(total, tables.bias)
 
 
-def evaluate_abs_sample(tables: SampleTables, x: torch.Tensor) -> torch.Tensor:
-    """Sampling-mode evaluation of one rung: (B, P) uint8 -> (B,) float32."""
+def evaluate_abs_sample(tables: SampleTables | ExactTables, x: torch.Tensor) -> torch.Tensor:
+    """Sampling-mode evaluation of one rung: (B, P) uint8 -> (B,) float32.
+
+    Exact tables take the exact evaluator; f32 tables the f32 one.
+    """
     if tables.num_graphs == 0:
         return torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    if isinstance(tables, ExactTables):
+        return evaluate_abs_exact(tables, x)
     if not tables.eligible:
-        raise NotImplementedError(
-            "this rung fails sample_eligible (its products exceed the f32 range); "
-            "tsim_tpu evaluates it through the exact kernels "
-            "(compile/pallas_evaluate.py::evaluate_abs_auto), which are not ported yet"
+        raise ValueError(
+            "this rung fails sample_eligible (its products exceed the f32 range): "
+            "build its tables with rung_tables(), which evaluates it exactly"
         )
     return evaluate_abs_sample_f32(tables, x)

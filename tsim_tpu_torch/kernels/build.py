@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources into a shared library and loads it with ctypes.
 
-``nvcc`` compiles ``kernels/csrc/*.cu`` (plain C interface, no PyTorch
-headers) for ``sm_90a`` into ``build/tsim_tpu_torch/<hash>/`` beside the
+``nvcc`` compiles each of ``kernels/csrc/*.cu`` (plain C interface, no
+PyTorch headers) for ``sm_90a``, all sources at once in parallel
+processes, and links them into ``build/tsim_tpu_torch/<hash>/`` beside the
 package, at first use; the directory name is a hash of the sources and
 flags, so an edited source builds anew. Nothing is imported or compiled
 when this module is imported.
@@ -19,11 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tsim_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LIB_NAME = "libtsim_kernels.so"
 
 _lib: ctypes.CDLL | None = None
@@ -67,17 +65,30 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in cmds
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        (lib.parent / "ptxas.log").write_text("".join(logs))
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        out = Path(tmp) / LIB_NAME
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(out, lib)
     return lib
 
 
@@ -91,6 +102,14 @@ def load() -> ctypes.CDLL:
             vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp,
         ]
         lib.tsim_sample_eval.restype = i32
+        lib.tsim_exact_eval.argtypes = [
+            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,
+        ]
+        lib.tsim_exact_eval.restype = i32
+        lib.tsim_approx_eval.argtypes = [
+            vp, i64, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,
+        ]
+        lib.tsim_approx_eval.restype = i32
         lib.tsim_cuda_error_string.argtypes = [i32]
         lib.tsim_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

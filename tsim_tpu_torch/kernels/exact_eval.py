@@ -1,0 +1,125 @@
+"""Wrappers of the CUDA exact-evaluation kernels (``csrc/exact_eval.cu``).
+
+Each wrapper checks its inputs, allocates the output, launches on
+PyTorch's current stream, raises if the launch fails and counts the
+launch. There is no fallback: the plain version
+(``compile/evaluate.py``) runs only for CPU tensors, chosen by the caller
+(``compile/exact_eval.py``).
+
+Kernels by name (and the TPU kernel each replaces):
+``exact_wide`` (K5), ``approx_wide`` (K6), ``exact_small`` (K7a),
+``approx_small`` (K7b).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .sample_eval import configuration
+
+MAX_TILE = 128  # graphs per block of the wide configuration
+
+# Launches per kernel, counted where each launch succeeds.
+launch_counts = {"exact_wide": 0, "approx_wide": 0, "exact_small": 0, "approx_small": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def graph_tile(num_graphs: int) -> int:
+    """Graphs per wide block: a power of two from 32 to MAX_TILE."""
+    tile = 32
+    while tile < min(num_graphs, MAX_TILE):
+        tile *= 2
+    return tile
+
+
+def num_tiles(num_graphs: int) -> int:
+    """Partials per row: graph tiles when wide, else one."""
+    if configuration(num_graphs) == "small":
+        return 1
+    tile = graph_tile(num_graphs)
+    return -(-num_graphs // tile)
+
+
+def _check(tables, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the exact kernels take CUDA tensors, got {x.device}")
+    if x.dtype != torch.uint8 or x.dim() != 2 or x.shape[1] != tables.n_params:
+        raise ValueError(f"expected (B, {tables.n_params}) uint8, got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("parameter rows must be contiguous")
+    for buf in (tables.flat, tables.approx):
+        if buf.device != x.device or not buf.is_contiguous():
+            raise ValueError(f"tables on {buf.device}, rows on {x.device}")
+    if tables.flat.dtype != torch.int32 or tables.approx.dtype != torch.float32:
+        raise ValueError("exact tables must be int32 with float32 approximate factors")
+    if tables.num_graphs <= 0:
+        raise ValueError("the exact kernels need at least one graph")
+
+
+def _launch(name: str, err: int, lib) -> None:
+    if err != 0:
+        msg = lib.tsim_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {err}: {msg}")
+    launch_counts[name] += 1
+
+
+def exact_partials(tables, x: torch.Tensor):
+    """(B, P) uint8 rows on a CUDA device -> exact per-tile graph sums:
+    coefficients (n_tiles, B, 4) int32 and power (n_tiles, B) int32, for a
+    rung without approximate floatfactors (K5 wide, K7a small)."""
+    _check(tables, x)
+    if tables.approximate:
+        raise ValueError("this rung has approximate floatfactors; use approx_partials")
+    G, B = tables.num_graphs, x.shape[0]
+    n = num_tiles(G)
+    out_c = torch.empty((n, B, 4), dtype=torch.int32, device=x.device)
+    out_p = torch.empty((n, B), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return out_c, out_p
+    lib = build.load()
+    config = configuration(G)
+    t1, t2, t3, t4 = tables.dims
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tsim_exact_eval(
+            ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
+            ctypes.c_void_p(tables.flat.data_ptr()), G, t1, t2, t3, t4, tables.words,
+            int(config == "wide"), graph_tile(G),
+            ctypes.c_void_p(out_c.data_ptr()), ctypes.c_void_p(out_p.data_ptr()),
+            ctypes.c_void_p(stream),
+        )
+    _launch(f"exact_{config}", err, lib)
+    return out_c, out_p
+
+
+def approx_partials(tables, x: torch.Tensor) -> torch.Tensor:
+    """(B, P) uint8 rows on a CUDA device -> (n_tiles, B, 2) float32 (re, im)
+    per-tile graph sums, for a rung with approximate floatfactors (K6 wide,
+    K7b small)."""
+    _check(tables, x)
+    if not tables.approximate:
+        raise ValueError("this rung has no approximate floatfactors; use exact_partials")
+    G, B = tables.num_graphs, x.shape[0]
+    out = torch.empty((num_tiles(G), B, 2), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    lib = build.load()
+    config = configuration(G)
+    t1, t2, t3, t4 = tables.dims
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tsim_approx_eval(
+            ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
+            ctypes.c_void_p(tables.flat.data_ptr()), ctypes.c_void_p(tables.approx.data_ptr()),
+            G, t1, t2, t3, t4, tables.words, int(config == "wide"), graph_tile(G),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream),
+        )
+    _launch(f"approx_{config}", err, lib)
+    return out

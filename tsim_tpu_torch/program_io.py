@@ -15,7 +15,7 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2  # 2: optional replay arrays
 
 
 @dataclass(frozen=True)
@@ -125,6 +125,9 @@ class ExportedProgram:
 
     ``reference_means`` holds per-output means sampled by ``tsim_tpu`` at
     ``meta["reference_shots"]`` shots, for physics checks where JAX is absent.
+    ``replay`` holds named arrays that ``tsim_tpu`` produced from given
+    randomness (noise uniforms, draw uniforms, and what it computed from
+    them), which the port must reproduce; ``meta`` describes them.
     """
 
     program: CompiledProgram
@@ -132,6 +135,7 @@ class ExportedProgram:
     num_detectors: int
     reference_means: np.ndarray | None = None
     meta: dict = field(default_factory=dict)
+    replay: dict = field(default_factory=dict)
 
 
 _FAMILIES = (
@@ -252,6 +256,8 @@ def flatten(exported: ExportedProgram) -> tuple[dict, dict]:
     arrays["noise.signature_matrix"] = exported.noise.signature_matrix
     if exported.reference_means is not None:
         arrays["reference_means"] = np.asarray(exported.reference_means, np.float64)
+    for k, v in exported.replay.items():
+        arrays[f"replay.{k}"] = np.asarray(v)
     header = {
         "format_version": FORMAT_VERSION,
         "components": comps,
@@ -332,5 +338,6 @@ def load_npz(path) -> ExportedProgram:
         num_detectors=header["num_detectors"],
         reference_means=arrays.get("reference_means"),
         meta=header["meta"],
+        replay={k[len("replay."):]: v for k, v in arrays.items() if k.startswith("replay.")},
     )
 

@@ -1,10 +1,11 @@
-"""Compiled samplers: autoregressive detector/measurement sampling on a torch device.
+"""Compiled samplers and state probabilities on a torch device.
 
 Counterpart of ``tsim_tpu/sampler.py`` for programs that come as data
 (``program_io``). Each batch draws noise on the device, copies the direct
-outputs, runs every component's plugged-circuit ladder (one f32
-evaluation per rung, chain-rule Bernoulli draws), packs the bits along
+outputs, runs every component's plugged-circuit ladder (one evaluation
+per rung, f32 or exact, chain-rule Bernoulli draws), packs the bits along
 the shot axis, copies them to the host and unpacks them there.
+:class:`CompiledStateProbs` evaluates joint-mode programs exactly.
 """
 
 from __future__ import annotations
@@ -17,8 +18,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from .compile.sample_eval import evaluate_abs_sample, norm_deviation_tolerance
-from .compile.sample_tables import SampleTables
+from .compile.sample_eval import (
+    check_evaluation,
+    evaluate_abs_sample,
+    norm_deviation_tolerance,
+    rung_tables,
+)
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
 
@@ -28,22 +33,32 @@ def _long(a) -> torch.Tensor:
 
 
 class ComponentTables(nn.Module):
-    """One component: its f-column selection and one SampleTables per rung."""
+    """One component: its f-column selection, output indices and the
+    evaluator tables of each rung (``rung_tables``)."""
 
-    def __init__(self, component):
+    def __init__(self, component, evaluation: str = "f32"):
         super().__init__()
         self.register_buffer("f_selection", _long(component.f_selection))
-        self.rungs = nn.ModuleList(SampleTables(c) for c in component.compiled_scalar_graphs)
+        self.register_buffer("output_indices", _long(component.output_indices))
+        self.rungs = nn.ModuleList(
+            rung_tables(c, evaluation) for c in component.compiled_scalar_graphs
+        )
 
 
 class ProgramTables(nn.Module):
-    """A compiled program's device data; ``.to(device)`` moves all of it once."""
+    """A compiled program's device data; ``.to(device)`` moves all of it once.
 
-    def __init__(self, program):
+    ``evaluation`` is "f32" or "exact" (see ``compile/sample_eval.py``).
+    """
+
+    def __init__(self, program, evaluation: str = "f32"):
         super().__init__()
         self.num_outputs = int(program.num_outputs)
         n_direct = len(np.asarray(program.direct_f_indices))
         self.register_buffer("direct_f_indices", _long(program.direct_f_indices))
+        self.register_buffer(
+            "direct_output_order", _long(np.asarray(program.output_order)[:n_direct])
+        )
         self.register_buffer(
             "direct_flips", torch.as_tensor(np.asarray(program.direct_flips, np.uint8).ravel())
         )
@@ -54,7 +69,23 @@ class ProgramTables(nn.Module):
         self.has_reindex = program.output_reindex is not None
         reindex = program.output_reindex if self.has_reindex else ()
         self.register_buffer("output_reindex", _long(reindex))
-        self.components = nn.ModuleList(ComponentTables(c) for c in program.components)
+        self.components = nn.ModuleList(
+            ComponentTables(c, evaluation) for c in program.components
+        )
+
+    def direct_bits(self, f_params: torch.Tensor) -> torch.Tensor:
+        """(B, n_direct) uint8 direct outputs of noise configurations ``f_params``."""
+        batch = f_params.shape[0]
+        if f_params.shape[1] == 0:
+            gathered = torch.zeros(
+                (batch, len(self.direct_f_indices)), dtype=torch.uint8, device=f_params.device
+            )
+        else:
+            gathered = static_take_columns(f_params, self.direct_f_indices)
+        direct = gathered ^ self.direct_flips
+        if self.has_const:
+            direct = torch.where(self.direct_const_mask, self.direct_flips, direct)
+        return direct
 
 
 def _sample_component(comp: ComponentTables, f_params, generator, uniforms=None):
@@ -115,14 +146,7 @@ def sample_program_with_deviation(tables: ProgramTables, f_params, generator, un
     draws = None if uniforms is None else iter(uniforms)
     results = []
     if len(tables.direct_f_indices):
-        if f_params.shape[1] == 0:
-            gathered = torch.zeros((batch, len(tables.direct_f_indices)), dtype=torch.uint8, device=device)
-        else:
-            gathered = static_take_columns(f_params, tables.direct_f_indices)
-        direct = gathered ^ tables.direct_flips
-        if tables.has_const:
-            direct = torch.where(tables.direct_const_mask, tables.direct_flips, direct)
-        results.append(direct)
+        results.append(tables.direct_bits(f_params))
     for comp in tables.components:
         bits, dev = _sample_component(comp, f_params, generator, draws)
         max_dev = torch.maximum(max_dev, dev.reshape(1))
@@ -144,14 +168,14 @@ def _pack_bitplanes(out: torch.Tensor) -> torch.Tensor:
     return (planes.reshape(n, b8, 8).to(torch.int32) * weights).sum(dim=2).to(torch.uint8)
 
 
-def _check_norm_deviation(max_dev) -> None:
+def _check_norm_deviation(max_dev, evaluation: str = "f32") -> None:
     val = float(max_dev.reshape(-1)[0])
     if np.isclose(val, 1):
         raise ValueError(
             "A vanishing marginal probability distribution was encountered "
             "(normalization 0). This is likely the result of an underflow error."
         )
-    if val > norm_deviation_tolerance():
+    if val > norm_deviation_tolerance(evaluation):
         warnings.warn(
             "A marginal probability was not normalized correctly "
             f"(normalization deviated from 1 by {val:.1e}). "
@@ -167,9 +191,15 @@ def _resolve_device(device) -> torch.device:
 
 
 class _CompiledSamplerBase:
-    """Shared sampling machinery over an :class:`~tsim_tpu_torch.program_io.ExportedProgram`."""
+    """Shared sampling machinery over an :class:`~tsim_tpu_torch.program_io.ExportedProgram`.
 
-    def __init__(self, exported, *, seed: int | None = None, device=None):
+    ``evaluation`` selects how rungs are evaluated: "f32" (the default;
+    rungs that fail ``sample_eligible`` are still exact) or "exact" (every
+    rung; the norm monitor's band narrows from 3e-3 to 1e-5).
+    """
+
+    def __init__(self, exported, *, seed: int | None = None, device=None, evaluation: str = "f32"):
+        self.evaluation = check_evaluation(evaluation)
         self.device = _resolve_device(device)
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**30))
@@ -177,7 +207,7 @@ class _CompiledSamplerBase:
         self._generator.manual_seed(seed)
         self._program = exported.program
         self._num_detectors = int(exported.num_detectors)
-        self._tables = ProgramTables(exported.program).to(self.device)
+        self._tables = ProgramTables(exported.program, evaluation).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
         # Largest normalization deviation of the last sample() call (the
         # monitor warns above norm_deviation_tolerance()).
@@ -231,7 +261,7 @@ class _CompiledSamplerBase:
             max_dev = torch.maximum(max_dev, dev)
             row += take
         self.last_norm_deviation = float(max_dev[0])
-        _check_norm_deviation(max_dev)
+        _check_norm_deviation(max_dev, self.evaluation)
         return result
 
     def _sample_batch(self, batch_size: int, dest: np.ndarray, stage=None) -> torch.Tensor:
@@ -315,3 +345,54 @@ class CompiledDetectorSampler(_CompiledSamplerBase):
                 _maybe_bit_pack(obs, bit_packed=bit_packed),
             )
         return _maybe_bit_pack(det, bit_packed=bit_packed)
+
+
+class CompiledStateProbs(_CompiledSamplerBase):
+    """Joint-mode probability estimator: P(state | noise sample), evaluated exactly.
+
+    Counterpart of ``tsim_tpu.sampler.CompiledStateProbs``. Each component
+    of a joint-mode program has two rungs, its norm and its joint circuit;
+    the noise comes from the device channel sampler on this object's
+    generator.
+    """
+
+    def __init__(self, exported, *, seed: int | None = None, device=None):
+        super().__init__(exported, seed=seed, device=device, evaluation="exact")
+        for comp in exported.program.components:
+            if len(comp.compiled_scalar_graphs) != 2:
+                raise ValueError(
+                    "a state-probability program has two rungs (norm, joint) per component, "
+                    f"got {len(comp.compiled_scalar_graphs)}"
+                )
+
+    def probability_of(self, state: np.ndarray, *, batch_size: int) -> np.ndarray:
+        """P(state | f) for ``batch_size`` noise samples f: (batch_size,) float32."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be at least 1, got {batch_size}")
+        expected = self._program.num_outputs
+        state = np.asarray(state)
+        if state.shape != (expected,):
+            raise ValueError(f"state must have shape ({expected},), got {state.shape}")
+        f_samples = self._device_channels.sample(self._generator, batch_size)
+        return self._probability_body(f_samples, state).cpu().numpy()
+
+    def _probability_body(self, f_samples: torch.Tensor, state) -> torch.Tensor:
+        """P(state | f) per row of (B, num_f) uint8 ``f_samples``: the direct
+        bits' agreement times, per component, |joint| / |norm| with the
+        component's state bits tiled behind its f-bits."""
+        tables = self._tables
+        batch = f_samples.shape[0]
+        device = f_samples.device
+        state = torch.as_tensor(np.asarray(state, np.uint8), device=device)
+        p_norm = torch.ones(batch, dtype=torch.float32, device=device)
+        p_joint = torch.ones(batch, dtype=torch.float32, device=device)
+        if len(tables.direct_f_indices):
+            targets = state[tables.direct_output_order]
+            p_joint = p_joint * (tables.direct_bits(f_samples) == targets).all(dim=1)
+        for comp in tables.components:
+            norm, joint = comp.rungs
+            f_selected = static_take_columns(f_samples, comp.f_selection)
+            p_norm = p_norm * evaluate_abs_sample(norm, f_selected)
+            tiled = state[comp.output_indices].expand(batch, -1)
+            p_joint = p_joint * evaluate_abs_sample(joint, torch.cat([f_selected, tiled], dim=1))
+        return p_joint / p_norm
