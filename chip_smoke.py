@@ -32,18 +32,51 @@ Phases, each printed on its own lines; any failure exits non-zero:
    .sample(4 * 2**20, batch_size=2**20)`` (norm deviation at most 1e-5,
    shots/s), the exported 4096-shot replay of tsim_tpu's exact sampling
    reproduced bit for bit, and one 2^20-shot batch of d3 distillation in
-   exact mode (norm deviation, z-scores as in phase 4).
+   exact mode (norm deviation, z-scores as in phase 4);
+8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``)
+   and, where a row fits 4 words, the packed ones (K1, K2) vs the plain
+   version on every rung of d3, 1-check and 2-check cultivation and on two
+   seeded rungs over 160 parameters, at 2^20 + 1 rows, within rtol 1e-5 of
+   the row's mass (the sum over graphs of |product|: cultivation's graph
+   sums cancel to near zero on most rows, where only the mass sets the
+   scale of f32 rounding); timed in turns with the plain version: K1 and K3a
+   on cultivation's 307-graph rung, K2 and K3b on d3's 6-graph rung;
+9. the start-up self-test of the f32 kernels (K4): its result, and its
+   four launches and their plain versions timed, each call on the card
+   alone (events queued behind a sleep, so host time stays out);
+10. postselected f32 cultivation: ``cultivation_d3(p=0.001, checks=2)
+    .compile_detector_sampler(seed=0, device="cuda").sample(4 * 2**20,
+    batch_size=2**20, postselection_mask=ones, use_detector_reference_sample=True,
+    use_observable_reference_sample=True, separate_observables=True)``;
+    the mask applied to the rows as users do; norm deviation at most 3e-3;
+    the reference sample equal to tsim_tpu's on every output that is
+    deterministic without noise; the survivor fraction and the survivors'
+    per-output means within 4 * sqrt(2) pooled sigma of tsim_tpu's exported
+    postselected reference (its means flipped where an output random without
+    noise drew the other reference value);
+    shots/s and survivors/s; launches of K1, K2 and K4 (whose cached result
+    is forgotten just before, so the path runs it as a new process would);
+11. the same path with ``TSIM_TPU_SAMPLE_TPACK=0``: launches of K3a and K3b
+    and the same checks;
+12. 1-check cultivation in f32 mode, 4 * 2**20 shots, z-scores against the
+    means tsim_tpu sampled;
+13. the stage ablation of the wide kernel (K8, ``dev/torch_kernel_ablate.py``)
+    on cultivation's 307-graph rung at 2^20 rows: its oracles and the time
+    of every variant.
 
-Each path of phases 4, 6 and 7 runs with the launch counts set to 0 just
-before it and read just after; a kernel of the path that was not launched
-fails the run. The line before the last is a JSON summary of the kernels;
-the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Each path of phases 4, 6, 7 and 10 to 13 runs with the launch counts set to
+0 just before it and read just after; a kernel of the path that was not
+launched fails the run. The line before the last is a JSON summary of the
+kernels, each with its least possible time on the card (``bound_ms``, see
+``f32_bound`` and ``exact_bound``); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -77,8 +110,100 @@ EXACT_TIMED = {
     "approx_wide": ("d3_state_probs", 172),
     "approx_small": ("d3", 6),
 }
+PER_TERM_REPLACES = {
+    "per_term_wide": "tsim_tpu/compile/pallas_sample.py:365",  # _kernel_sample_unpacked (K3a)
+    "per_term_small": "tsim_tpu/compile/pallas_sample.py:383",  # _kernel_sample_t_unpacked (K3b)
+}
+SELF_TEST_REPLACES = "tsim_tpu/compile/pallas_sample.py:405"  # _tpack_probe (K4)
+ABLATE_REPLACES = "dev/kernel_ablate.py:132"  # run_variant -> _body_ablate (K8)
 CULTIVATION_SHOTS = 4 * MAIN_BATCH
+WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' four words
 DEVICE = "cuda"
+SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock, longer than the queued calls take to enqueue
+
+# Peaks of one H100 SXM (NVIDIA's data sheet; 132 SMs at a boost clock of
+# 1.98 GHz): HBM at 3.35 TB/s; f32 at 67 TFLOP/s outside the tensor cores
+# (128 lanes an SM, an FMA counted as two); int32 adds, multiplies and
+# logic at 64 results per clock an SM (the CUDA programming guide's
+# throughput table for compute capability 9.0), so 132 * 64 * 1.98e9 =
+# 16.7e12 a second.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def live_terms(circuit) -> tuple[int, int, int, int]:
+    """Live terms summed over the graphs, per family: node phases and phase
+    pairs by their counts, half-pi phases with a nonzero coefficient, pi
+    products whose two sides are not both zero."""
+    n1 = int(np.sum(circuit.node_phases.counts))
+    n2 = int(np.count_nonzero(np.asarray(circuit.halfpi_phases.coeffs) & 7))
+    pp = circuit.pi_products
+    psi = (np.asarray(pp.psi_const) & 1).astype(bool) | np.asarray(pp.psi_params).any(axis=-1)
+    phi = (np.asarray(pp.phi_const) & 1).astype(bool) | np.asarray(pp.phi_params).any(axis=-1)
+    n3 = int(np.count_nonzero(psi & phi))
+    n4 = int(np.sum(circuit.phase_pairs.counts))
+    return n1, n2, n3, n4
+
+
+def parity_bits(circuit) -> int:
+    """Parameters set in the live parity rows, summed over the graphs: with
+    32 shots' bits of one parameter in a word, each costs one XOR per 32
+    shots, the least parity work of any of the kernels."""
+    npp, hp, pp, qp = circuit.node_phases, circuit.halfpi_phases, circuit.pi_products, circuit.phase_pairs
+
+    def under(counts, params):
+        t = np.asarray(params).shape[0]
+        return (np.arange(t)[:, None] < np.asarray(counts)[None, :])[..., None]
+
+    live_pp = (np.asarray(pp.psi_params).any(axis=-1) | (np.asarray(pp.psi_const) & 1).astype(bool)) & (
+        np.asarray(pp.phi_params).any(axis=-1) | (np.asarray(pp.phi_const) & 1).astype(bool)
+    )
+    return int(
+        (np.asarray(npp.params) * under(npp.counts, npp.params)).sum()
+        + np.asarray(hp.params)[(np.asarray(hp.coeffs) & 7) != 0].sum()
+        + np.asarray(pp.psi_params)[live_pp].sum() + np.asarray(pp.phi_params)[live_pp].sum()
+        + (np.asarray(qp.alpha_params) * under(qp.counts, qp.alpha_params)).sum()
+        + (np.asarray(qp.beta_params) * under(qp.counts, qp.beta_params)).sum()
+    )
+
+
+def _bound(t_ops: float, t_bytes: float) -> tuple[float, str]:
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def f32_bound(circuit, table_bytes: int, rows: int) -> tuple[float, str]:
+    """(least ms, what bounds it) of one f32 evaluation (K1-K4, K8) of
+    ``rows`` rows: the larger of its bytes (rows once, tables once, (re, im)
+    out once) over HBM and its f32 operations over the f32 peak. The least
+    f32 operations per row: 6 per live node-phase and phase-pair term (a
+    complex product by a factor chosen by the term's parities from
+    constants), 12 per graph (the half-pi rotation, the prefactor's complex
+    product, the graph sum). The integer parity work runs beside it on
+    other units and is not counted."""
+    n1, _, _, n4 = live_terms(circuit)
+    flops = rows * (6 * (n1 + n4) + 12 * circuit.num_graphs)
+    nbytes = rows * circuit.n_params + table_bytes + rows * 8
+    return _bound(flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+
+
+def exact_bound(circuit, tables, rows: int) -> tuple[float, str]:
+    """(least ms, what bounds it) of one exact evaluation (K5-K7b) of
+    ``rows`` rows of the rung ``circuit`` held by ``tables``: the larger of
+    its bytes (rows, tables and the result once: Z[w] coefficients and
+    power, or (re, im)) over HBM and its int32 operations over the int32
+    peak. The least int32 operations per row: the parities bit-sliced
+    (:func:`parity_bits` / 32), 4 adds per live node-phase term (acc +
+    w^k acc), 12 per live phase-pair term (three rotated copies of acc
+    added), and with the exact finisher 32 per graph (the prefactor's Z[w]
+    product, the graph sum); the approximate finisher's float work per
+    graph is not counted."""
+    n1, _, _, n4 = live_terms(circuit)
+    per_graph = 0 if tables.approximate else 32
+    ops = rows * (4 * n1 + 12 * n4 + per_graph * circuit.num_graphs + parity_bits(circuit) / 32)
+    out = 8 if tables.approximate else 20
+    nbytes = rows * tables.n_params + 4 * (tables.flat.numel() + tables.approx.numel()) + rows * out
+    return _bound(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
 def fail(msg: str) -> None:
@@ -119,20 +244,40 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def check_means(label: str, out: np.ndarray, exported) -> None:
-    """Per-output z-scores of ``out``'s means against the means tsim_tpu sampled."""
-    ref = np.asarray(exported.reference_means, np.float64)
-    n_ref = int(exported.meta["reference_shots"])
-    shots = out.shape[0]
-    means = out.mean(axis=0, dtype=np.float64)
-    pooled = (means * shots + ref * n_ref) / (shots + n_ref)
-    sigma = np.sqrt(np.maximum(pooled * (1 - pooled), 1e-12) * (1 / shots + 1 / n_ref))
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device milliseconds of one call, after one warm-up call: each
+    call between its own pair of CUDA events, all queued behind a sleep on
+    the card, so the host's launch time stays outside the pairs."""
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
+def check_z(label: str, means, n: int, ref, n_ref: int) -> None:
+    """z-scores of means over ``n`` shots against tsim_tpu's over ``n_ref``,
+    with the pooled sigma; fails beyond 4 * sqrt(2)."""
+    means, ref = np.atleast_1d(np.asarray(means, np.float64)), np.atleast_1d(np.asarray(ref, np.float64))
+    pooled = (means * n + ref * n_ref) / (n + n_ref)
+    sigma = np.sqrt(np.maximum(pooled * (1 - pooled), 1e-12) * (1 / n + 1 / n_ref))
     z = np.abs(means - ref) / sigma
     print(f"{label}: means  " + " ".join(f"{m:.4f}" for m in means))
     print(f"{label}: tsim_tpu " + " ".join(f"{m:.4f}" for m in ref))
     print(f"{label}: z      " + " ".join(f"{v:.2f}" for v in z) + f" (max {z.max():.2f}, bound {Z_BOUND:.2f})")
     if not (z < Z_BOUND).all():
-        fail(f"{label}: an output's mean disagrees with tsim_tpu's beyond 4 * sqrt(2) sigma")
+        fail(f"{label}: a mean disagrees with tsim_tpu's beyond 4 * sqrt(2) sigma")
+
+
+def check_means(label: str, out: np.ndarray, exported) -> None:
+    """Per-output z-scores of ``out``'s means against the means tsim_tpu sampled."""
+    check_z(label, out.mean(axis=0, dtype=np.float64), out.shape[0],
+            exported.reference_means, int(exported.meta["reference_shots"]))
 
 
 def check_launched(label: str, launches: dict, expected) -> None:
@@ -196,9 +341,11 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict]:
                 d1 = time_ms(lambda: evaluate_abs_exact(t, x))
                 k2 = time_ms(lambda: partials(t, x))
                 _, p2 = timed_once(lambda: evaluate_abs(t.circuit(), x))
-                timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                bound = exact_bound(csg, t, KERNEL_ROWS)
+                timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"{label} G={t.num_graphs}")
                 print(
-                    f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): kernel "
+                    f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound "
+                    f"{bound[0]:.4f} ms ({bound[1]}), kernel "
                     f"{k1:.4f} / {k2:.4f} ms, dispatch with the partials' combine {d1:.4f} ms, "
                     f"plain {p1:.2f} / {p2:.2f} ms",
                     flush=True,
@@ -310,6 +457,235 @@ def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
     return cult_launches, d3_launches
 
 
+def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
+    """Phase 8: per-term (and packed, where a row fits) f32 kernels vs the
+    plain version on every rung at KERNEL_ROWS rows, and the timings of
+    K1/K3a on cultivation's 307-graph rung and K2/K3b on d3's 6-graph rung.
+
+    Returns ({configuration: max abs err}, {configuration: (kernel ms,
+    plain ms, bound ms, bound by, rung)})."""
+    from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference, synthetic_rung
+    from tsim_tpu_torch.compile.sample_tables import MAX_WORDS, SampleTables
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    timed = {("cultivation", 307): ("wide", "per_term_wide"), ("d3", 6): ("small", "per_term_small")}
+    rungs = [
+        (label, c) for label, exported in programs.items()
+        for comp in exported.program.components for c in comp.compiled_scalar_graphs
+    ]
+    rungs += [(f"seeded P={WIDE_PARAMS}", synthetic_rung(s, g, WIDE_PARAMS, (6, 4, 4, 2)))
+              for s, g in ((11, 40), (12, 8))]
+    max_abs = dict.fromkeys(kernel.CONFIGURATIONS, 0.0)
+    timing = {}
+    for i, (label, c) in enumerate(rungs):
+        t = SampleTables(c).to(dev)
+        x = rows(t.n_params, KERNEL_ROWS, seed=300 + i, device=dev)
+        want, mass = sample_product_sum_reference(t, x, with_mass=True)
+        scale, norm = mass[:, None], want.norm(dim=1, keepdim=True)
+        layout = kernel.layout(t.num_graphs)
+        configs = [f"per_term_{layout}"] + ([layout] if t.words <= MAX_WORDS else [])
+        outs = {}
+        for config in configs:
+            got = outs[config] = kernel.launch(t, x, config)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"{label} G={t.num_graphs}: {config} output is not finite")
+            err = (got - want).abs()
+            rel = float((err / scale.clamp_min(1e-30)).max())
+            rel_norm = float((err / norm.clamp_min(1e-30)).max())
+            ok = bool((err <= ATOL + RTOL * scale).all())
+            max_abs[config] = max(max_abs[config], float(err.max()))
+            print(f"{label} G={t.num_graphs} P={t.n_params} W={t.words} {config}, B={KERNEL_ROWS}: "
+                  f"max err {rel:.3e} of the row's mass ({rel_norm:.3e} of |row|), "
+                  f"max abs err {float(err.max()):.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{label} G={t.num_graphs}: {config} disagrees with the plain version beyond rtol {RTOL}")
+            del got, err
+        if len(outs) == 2:
+            print(f"{label} G={t.num_graphs}: {configs[0]} equals {configs[1]} bit for bit: "
+                  f"{torch.equal(*outs.values())}", flush=True)
+        del outs
+        pair = timed.get((label, t.num_graphs))
+        if pair and pair[0] not in timing:
+            # In turns: plain, packed, per-term, per-term, packed, plain.
+            packed, per_term = pair
+            _, p1 = timed_once(lambda: sample_product_sum_reference(t, x))
+            a1 = time_ms(lambda: kernel.launch(t, x, packed))
+            b1 = time_ms(lambda: kernel.launch(t, x, per_term))
+            b2 = time_ms(lambda: kernel.launch(t, x, per_term))
+            a2 = time_ms(lambda: kernel.launch(t, x, packed))
+            _, p2 = timed_once(lambda: sample_product_sum_reference(t, x))
+            bound = f32_bound(c, 4 * t.flat.numel(), KERNEL_ROWS)
+            rung = f"{label} G={t.num_graphs}"
+            timing[packed] = ((a1 + a2) / 2, (p1 + p2) / 2, *bound, rung)
+            timing[per_term] = ((b1 + b2) / 2, (p1 + p2) / 2, *bound, rung)
+            print(f"time at B={KERNEL_ROWS}, {rung}: bound {bound[0]:.4f} ms ({bound[1]}), "
+                  f"{packed} {a1:.4f} / {a2:.4f} ms, {per_term} {b1:.4f} / {b2:.4f} ms, "
+                  f"plain {p1:.2f} / {p2:.2f} ms", flush=True)
+        del t, x, want, mass, scale, norm
+        torch.cuda.empty_cache()
+    if len(timing) != 4:
+        fail(f"no rung with the timed graph counts {sorted(timed)}")
+    return max_abs, timing
+
+
+def self_test_phase(dev) -> tuple[float, tuple]:
+    """Phase 9: the K4 self-test's result, and its four launches timed
+    against their plain versions, each launch on the card alone. Returns
+    (max abs err, (ms, plain ms, bound ms, bound by, rung)), the times
+    summed over the four launches."""
+    from tsim_tpu_torch.compile import sample_eval
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    errors, total = timed_once(lambda: sample_eval.self_test(dev))
+    print(f"self-test: {total:.3f} ms, max rel err by configuration "
+          + ", ".join(f"{c} {e:.3e}" for c, e in errors.items()), flush=True)
+    tables, x = sample_eval.probe_inputs(dev)
+    circuits = sample_eval.probe_rungs()
+    max_abs, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, set()
+    for c in kernel.CONFIGURATIONS:
+        layout = c.removeprefix("per_term_")
+        t = tables[layout]
+        want = sample_eval.sample_product_sum_reference(t, x)
+        max_abs = max(max_abs, float((kernel.launch(t, x, c, count_as="self_test") - want).abs().max()))
+        k = device_ms(lambda: kernel.launch(t, x, c, count_as="self_test"))
+        p = device_ms(lambda: sample_eval.sample_product_sum_reference(t, x))
+        b = f32_bound(circuits[layout], 4 * t.flat.numel(), x.shape[0])
+        print(f"self-test launch {c} ({x.shape[0]} rows): bound {b[0]:.6f} ms ({b[1]}), "
+              f"kernel {k:.4f} ms, plain {p:.4f} ms (device time)", flush=True)
+        ms, plain_ms, bound_ms = ms + k, plain_ms + p, bound_ms + b[0]
+        by.add(b[1])
+    bound_by = "bytes" if by == {"bytes"} else "operations"
+    print(f"self-test launches, summed: bound {bound_ms:.6f} ms, kernels {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms", flush=True)
+    return max_abs, (ms, plain_ms, bound_ms, bound_by, "probe G=128 and 8, P=8")
+
+
+def reference_fold(cultivation) -> np.ndarray:
+    """Outputs of ``cultivation`` that are random without noise: those that
+    take both values on 256 draws of the all-zero noise row, by the plain
+    version on the CPU. Each package's reference sample takes its own draw
+    there, so only those outputs may differ between them."""
+    from tsim_tpu_torch.sampler import sample_program_with_deviation
+
+    sampler = cultivation.compile_detector_sampler(seed=0, device="cpu")
+    f = torch.zeros((256, sampler._device_channels.num_f), dtype=torch.uint8)
+    out, _ = sample_program_with_deviation(sampler._tables, f, sampler._generator)
+    out = out.numpy()
+    return ~(out == out[:1]).all(axis=0)
+
+
+def postselected_path(cultivation, label: str, expected, random_outputs: np.ndarray) -> dict:
+    """Phases 10 and 11: postselected f32 sampling of 2-check cultivation
+    with both reference samples, checked against tsim_tpu's export.
+    ``random_outputs`` marks the outputs that are random without noise."""
+    from tsim_tpu_torch.compile import sample_eval
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    exported = cultivation.load()
+    nd = exported.num_detectors
+    mask = np.ones(nd, bool)
+    kw = dict(
+        batch_size=MAIN_BATCH, postselection_mask=mask, use_detector_reference_sample=True,
+        use_observable_reference_sample=True, separate_observables=True,
+    )
+    sampler = cultivation.compile_detector_sampler(seed=0, device=DEVICE)
+    sampler.sample(MAIN_BATCH, **kw)  # warm-up
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    sample_eval.reset_self_test()
+    t0 = time.perf_counter()
+    det, obs = sampler.sample(CULTIVATION_SHOTS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.launch_counts)
+    check_launched(label, launches, expected)
+    n_obs = exported.program.num_outputs - nd
+    if det.shape != (CULTIVATION_SHOTS, nd) or obs.shape != (CULTIVATION_SHOTS, n_obs) or det.dtype != np.bool_:
+        fail(f"{label}: expected ({CULTIVATION_SHOTS}, {nd}) and ({CULTIVATION_SHOTS}, {n_obs}) bool samples")
+    dev_norm = sampler.last_norm_deviation
+    print(f"{label}: max norm deviation {dev_norm:.3e} (limit {NORM_TOL})", flush=True)
+    if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
+        fail(f"{label}: norm deviation above the f32 tolerance")
+    keep = ~(det & mask).any(axis=1)
+    survivors = int(keep.sum())
+    print(f"{label}: {CULTIVATION_SHOTS} shots in {wall:.3f} s = {CULTIVATION_SHOTS / wall:.0f} shots/s, "
+          f"{survivors} survivors = {survivors / wall:.0f} survivors/s (batch {MAIN_BATCH})", flush=True)
+    meta, replay = exported.meta, exported.replay
+    check_z(f"{label}: survivor fraction", keep.mean(), CULTIVATION_SHOTS,
+            meta["survivor_fraction"], int(meta["reference_shots"]))
+    # An output that is random without noise takes one draw in each
+    # package's reference; where the two draws differ, the fold flips it.
+    # Every other output must have the same reference in both.
+    port_ref = sampler._reference_sample()
+    tsim_ref = replay["reference_sample"].astype(bool)
+    print(f"{label}: reference rows: port {port_ref.astype(int).tolist()}, "
+          f"tsim_tpu {tsim_ref.astype(int).tolist()}, random without noise "
+          f"{random_outputs.astype(int).tolist()}", flush=True)
+    differ = port_ref != tsim_ref
+    if (differ & ~random_outputs).any():
+        fail(f"{label}: the reference sample differs from tsim_tpu's on outputs "
+             f"{np.flatnonzero(differ & ~random_outputs).tolist()}, deterministic without noise")
+    flip = differ & random_outputs
+    ref_means = np.where(flip, 1 - replay["survivor_means"], replay["survivor_means"])
+    check_z(f"{label}: survivor means", np.hstack([det, obs])[keep].mean(axis=0, dtype=np.float64),
+            survivors, ref_means, int(meta["reference_survivors"]))
+    return launches
+
+
+def checks1_path(cultivation) -> dict:
+    """Phase 12: 1-check cultivation in f32 mode."""
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    exported = cultivation.load()
+    sampler = cultivation.compile_detector_sampler(seed=0, device=DEVICE)
+    sampler.sample(MAIN_BATCH, batch_size=MAIN_BATCH, append_observables=True)  # warm-up
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(CULTIVATION_SHOTS, batch_size=MAIN_BATCH, append_observables=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.launch_counts)
+    check_launched("cultivation 1-check", launches, ["wide", "small"])
+    if out.shape != (CULTIVATION_SHOTS, exported.program.num_outputs) or out.dtype != np.bool_:
+        fail("cultivation 1-check: samples of the wrong shape or type")
+    dev_norm = sampler.last_norm_deviation
+    print(f"cultivation 1-check: max norm deviation {dev_norm:.3e} (limit {NORM_TOL}); "
+          f"{CULTIVATION_SHOTS} shots in {wall:.3f} s = {CULTIVATION_SHOTS / wall:.0f} shots/s", flush=True)
+    if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
+        fail("cultivation 1-check: norm deviation above the f32 tolerance")
+    check_means("cultivation 1-check", out, exported)
+    return launches
+
+
+def ablation_path(cultivation, dev) -> tuple[dict, tuple, float]:
+    """Phase 13: the K8 ablation on cultivation's 307-graph rung."""
+    from dev.torch_kernel_ablate import ablate_rung
+    from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference
+    from tsim_tpu_torch.compile.sample_tables import SampleTables
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    circuit = cultivation.load().program.components[0].compiled_scalar_graphs[-1]
+    x = rows(circuit.n_params, MAIN_BATCH, seed=400, device=dev)
+    kernel.reset_launch_counts()
+    results = ablate_rung(circuit, x)
+    launches = dict(kernel.launch_counts)
+    check_launched("ablation", launches, ["ablate"])
+    for r in results:
+        err = "" if r["err"] is None else f", err {r['err']:.3e}"
+        print(f"ablation G={circuit.num_graphs}, B={MAIN_BATCH}: {r['name']:12s} {r['ms']:9.4f} ms "
+              f"[{r['oracle']}{err}] -> {'ok' if r['ok'] else 'FAIL'}", flush=True)
+    if not all(r["ok"] for r in results):
+        fail("ablation: a variant failed its oracle")
+    t = SampleTables(circuit).to(dev)
+    _, plain = timed_once(lambda: sample_product_sum_reference(t, x))
+    full = next(r for r in results if r["name"] == "full")
+    bound = f32_bound(circuit, 4 * t.flat.numel(), MAIN_BATCH)
+    max_err = max(r["abs_err"] or 0.0 for r in results)
+    return launches, (full["ms"], plain, *bound, f"cultivation G={circuit.num_graphs}, full"), max_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs only on a CUDA GPU")
@@ -377,10 +753,11 @@ def main() -> None:
             p1 = time_ms(lambda: sample_product_sum_reference(t, x))
             k2 = time_ms(lambda: kernel.sample_product_sum(t, x))
             p2 = time_ms(lambda: sample_product_sum_reference(t, x))
-            timing[config] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            bound = f32_bound(rungs[i], 4 * t.flat.numel(), KERNEL_ROWS)
+            timing[config] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"d3 G={t.num_graphs}")
             print(
-                f"time at B={KERNEL_ROWS}, G={t.num_graphs} ({config}): kernel {k1:.4f} / "
-                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms",
+                f"time at B={KERNEL_ROWS}, G={t.num_graphs} ({config}): bound {bound[0]:.4f} ms "
+                f"({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms",
                 flush=True,
             )
     if set(timing) != set(timed):
@@ -406,9 +783,7 @@ def main() -> None:
     print(f"slice: max norm deviation {dev_norm:.3e} (limit {NORM_TOL})", flush=True)
     if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
         fail("norm deviation above the f32 tolerance")
-    print(f"slice: kernel launches {launches}", flush=True)
-    if min(launches.values()) <= 0:
-        fail("a kernel of the main path was not launched")
+    check_launched("slice", launches, ["wide", "small"])
     print(
         f"slice: {MAIN_SHOTS} shots in {wall:.3f} s = {MAIN_SHOTS / wall:.0f} shots/s "
         f"(batch {MAIN_BATCH}, {kind})",
@@ -439,32 +814,77 @@ def main() -> None:
     paths += exact_sampling_path(cultivation, circuit)
     exact_launches = {k: sum(p[k] for p in paths) for k in exact_err}
 
-    entries = [
-        {
-            "name": f"sample_eval_{config}",
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[config],
-            "launches": launches[config],
-            "max_abs_err": max_abs[config],
-            "ms": timing[config][0],
-            "plain_ms": timing[config][1],
+    # ---- phase 8: per-term kernels vs plain version ----------------------
+    cultivation_checks1 = cultivation_d3(p=0.001, checks=1)
+    per_term_err, per_term_timing = per_term_phase(
+        {"d3": exported, "cultivation_checks1": cultivation_checks1.load(), "cultivation": cultivation.load()},
+        dev,
+    )
+
+    # ---- phase 9: the self-test ------------------------------------------
+    self_test_err, self_test_timing = self_test_phase(dev)
+
+    # ---- phases 10 and 11: postselected f32 cultivation ------------------
+    f32_paths = [launches]
+    random_outputs = reference_fold(cultivation)
+    packed = postselected_path(
+        cultivation, "postselected cultivation", ["wide", "small", "self_test"], random_outputs
+    )
+    if packed["per_term_wide"] or packed["per_term_small"]:
+        fail("postselected cultivation: the packed path launched per-term kernels")
+    f32_paths.append(packed)
+    switch = os.environ.get("TSIM_TPU_SAMPLE_TPACK")
+    os.environ["TSIM_TPU_SAMPLE_TPACK"] = "0"
+    try:
+        per_term = postselected_path(
+            cultivation, "postselected cultivation, per-term", ["per_term_wide", "per_term_small"],
+            random_outputs,
+        )
+    finally:
+        if switch is None:
+            del os.environ["TSIM_TPU_SAMPLE_TPACK"]
+        else:
+            os.environ["TSIM_TPU_SAMPLE_TPACK"] = switch
+    if per_term["wide"] or per_term["small"]:
+        fail("postselected cultivation, per-term: packed kernels were launched")
+    f32_paths.append(per_term)
+
+    # ---- phase 12: 1-check cultivation in f32 mode -----------------------
+    f32_paths.append(checks1_path(cultivation_checks1))
+    f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
+
+    # ---- phase 13: the stage ablation ------------------------------------
+    ablate_launches, ablate_timing, ablate_err = ablation_path(cultivation, dev)
+
+    def entry(name, source, replaces, n_launches, err, timed):
+        ms, plain_ms, bound_ms, bound_by, rung = timed
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "rung": rung,
         }
-        for config in ("wide", "small")
+
+    entries = [
+        entry(f"sample_eval_{c}", SOURCE, REPLACES[c], f32_launches[c],
+              max(max_abs[c], per_term_err[c]), timing[c])
+        for c in ("wide", "small")
     ]
     entries += [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": EXACT_SOURCE,
-            "replaces": EXACT_REPLACES[name],
-            "launches": exact_launches[name],
-            "max_abs_err": exact_err[name],
-            "ms": exact_timing[name][0],
-            "plain_ms": exact_timing[name][1],
-        }
+        entry(f"sample_eval_{c}", SOURCE, PER_TERM_REPLACES[c], f32_launches[c], per_term_err[c],
+              per_term_timing[c])
+        for c in PER_TERM_REPLACES
+    ]
+    entries.append(entry("sample_eval_self_test", SOURCE, SELF_TEST_REPLACES, f32_launches["self_test"],
+                         self_test_err, self_test_timing))
+    entries += [
+        entry(name, EXACT_SOURCE, EXACT_REPLACES[name], exact_launches[name], exact_err[name],
+              exact_timing[name])
         for name in EXACT_REPLACES
     ]
+    entries.append(entry("sample_eval_ablate", SOURCE, ABLATE_REPLACES, ablate_launches["ablate"],
+                         ablate_err, ablate_timing))
+    print(f"packed vs per-term at B={KERNEL_ROWS} on the timed rungs: " + ", ".join(
+        f"{c} {per_term_timing[c][0]:.4f} ms ({per_term_timing[c][4]})" for c in per_term_timing), flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

@@ -12,10 +12,18 @@ Three programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
 * ``cultivation``: ``cultivation_d3(p=0.001, checks=2)
   .compile_detector_sampler(seed=0)``, with replay data: 4096 shots of
   tsim_tpu's exact sampling (batch 0 of seed 0), their noise uniforms,
-  their per-rung draw uniforms and the resulting output bits.
+  their per-rung draw uniforms and the resulting output bits; and its
+  postselected reference: 2^18 shots sampled with the postselection mask
+  over all detectors and both reference samples on, the survivors (rows
+  with no detection event) as a fraction of the shots, their per-output
+  means (detectors then observables) and the reference sample row;
+* ``cultivation_checks1``: ``cultivation_d3(p=0.001, checks=1)
+  .compile_detector_sampler(seed=0)``, with the per-output means of
+  tsim_tpu's own sampler at 2^20 shots, as the physics reference.
 
 Each program is converted with ``tsim_tpu_torch.program_io.from_reference``.
-Needs JAX; runs on the CPU, where tsim_tpu evaluates exactly:
+Needs JAX; runs on the CPU, where tsim_tpu evaluates exactly (the two
+cultivation programs take about 8 and 2 minutes):
 
     JAX_PLATFORMS=cpu python dev/export_torch_program.py [--program NAME]
 """
@@ -32,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REFERENCE_SHOTS = 1 << 18
 REFERENCE_BATCH = 1 << 16
+POSTSELECTED_SHOTS = 1 << 18
+CHECKS1_SHOTS = 1 << 20
 REPLAY_ROWS = 4096
 REPLAY_STATES = 4
 SEED = 0
@@ -51,11 +61,11 @@ def compile_d3_state_probs():
     return distillation_d3(p=0.05).compile_state_probs(seed=SEED)
 
 
-def compile_cultivation():
-    """The tsim_tpu detector sampler of 2-check d3 cultivation at p = 0.001, seed 0."""
+def compile_cultivation(checks: int = 2):
+    """The tsim_tpu detector sampler of d3 cultivation at p = 0.001, seed 0."""
     from tsim_tpu.models.cultivation import cultivation_d3
 
-    return cultivation_d3(p=0.001, checks=2).compile_detector_sampler(seed=SEED)
+    return cultivation_d3(p=0.001, checks=checks).compile_detector_sampler(seed=SEED)
 
 
 def export_sampler(sampler):
@@ -94,6 +104,36 @@ def jax_replay(sampler, batch: int, seed: int):
             key, dk = jax.random.split(key)
             draws.append(np.asarray(jax.random.uniform(dk, (batch,), dtype=jnp.float32)))
     return u_noise, draws, np.asarray(bits), float(np.asarray(dev)[0])
+
+
+def postselected_reference(sampler, shots: int) -> tuple[dict, dict]:
+    """tsim_tpu's postselected sampling with the mask over all detectors and
+    both reference samples on: (meta entries, replay arrays) with the
+    survivor fraction, the survivors' per-output means and the reference row."""
+    import numpy as np
+
+    mask = np.ones(sampler._num_detectors, bool)
+    det, obs = sampler.sample(
+        shots, batch_size=REFERENCE_BATCH, postselection_mask=mask,
+        use_detector_reference_sample=True, use_observable_reference_sample=True,
+        separate_observables=True,
+    )
+    keep = ~(det & mask).any(axis=1)
+    survivors = np.hstack([det, obs])[keep]
+    meta = {
+        "reference": f"sample({shots}, batch_size={REFERENCE_BATCH}, postselection_mask=ones, "
+        "use_detector_reference_sample=True, use_observable_reference_sample=True, "
+        "separate_observables=True), survivors = rows with no detector set; "
+        "tsim_tpu on the CPU (exact evaluation)",
+        "reference_shots": shots,
+        "reference_survivors": int(keep.sum()),
+        "survivor_fraction": float(keep.mean()),
+    }
+    replay = {
+        "survivor_means": survivors.mean(axis=0),
+        "reference_sample": sampler._compute_reference_sample().astype(np.uint8),
+    }
+    return meta, replay
 
 
 def state_probs_replay(sp, rows: int, n_states: int) -> dict:
@@ -152,31 +192,61 @@ def _cultivation(args):
     import numpy as np
 
     sampler = compile_cultivation()
+    exported = export_sampler(sampler)
     t0 = time.perf_counter()
     u_noise, draws, bits, dev = jax_replay(sampler, REPLAY_ROWS, SEED)
     print(f"cultivation replay in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    post_meta, post_replay = postselected_reference(sampler, POSTSELECTED_SHOTS)
+    print(f"postselected reference in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return dataclasses.replace(
-        export_sampler(sampler),
+        exported,
         meta={
             "circuit": "tsim_tpu.models.cultivation.cultivation_d3(p=0.001, checks=2)",
             "compile": f"compile_detector_sampler(seed={SEED})",
             "replay": f"batch 0 of seed {SEED} at batch size 4096 (dev/export_torch_program.py::"
             "jax_replay), tsim_tpu on the CPU (exact evaluation)",
             "replay_norm_deviation": dev,
+            **post_meta,
         },
         replay={
             "noise_uniforms": u_noise,
             "draw_uniforms": np.stack(draws),
             "bits": bits.astype(np.uint8),
+            **post_replay,
         },
     )
 
 
-PROGRAMS = {"d3": _d3, "d3_state_probs": _d3_state_probs, "cultivation": _cultivation}
+def _cultivation_checks1(args):
+    sampler = compile_cultivation(checks=1)
+    exported = export_sampler(sampler)
+    t0 = time.perf_counter()
+    samples = sampler.sample(CHECKS1_SHOTS, batch_size=REFERENCE_BATCH, append_observables=True)
+    print(f"sampled {CHECKS1_SHOTS} shots in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return dataclasses.replace(
+        exported,
+        reference_means=samples.mean(axis=0),
+        meta={
+            "circuit": "tsim_tpu.models.cultivation.cultivation_d3(p=0.001, checks=1)",
+            "compile": f"compile_detector_sampler(seed={SEED})",
+            "reference": "sample(shots, batch_size=65536, append_observables=True), "
+            "tsim_tpu on the CPU (exact evaluation)",
+            "reference_shots": CHECKS1_SHOTS,
+        },
+    )
+
+
+PROGRAMS = {
+    "d3": _d3,
+    "d3_state_probs": _d3_state_probs,
+    "cultivation": _cultivation,
+    "cultivation_checks1": _cultivation_checks1,
+}
 
 
 def main() -> None:
-    from tsim_tpu_torch.models.cultivation import CULTIVATION_PROGRAM
+    from tsim_tpu_torch.models.cultivation import CULTIVATION_CHECKS1_PROGRAM, CULTIVATION_PROGRAM
     from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
     from tsim_tpu_torch.program_io import save_npz
 
@@ -184,6 +254,7 @@ def main() -> None:
         "d3": D3_PROGRAM,
         "d3_state_probs": D3_STATE_PROBS_PROGRAM,
         "cultivation": CULTIVATION_PROGRAM,
+        "cultivation_checks1": CULTIVATION_CHECKS1_PROGRAM,
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--program", choices=[*PROGRAMS, "all"], default="all")

@@ -1,6 +1,8 @@
-"""Where the time of d3 distillation sampling goes on a CUDA card (tsim_tpu_torch).
+"""Where the time of d3 distillation sampling goes on a CUDA card (tsim_tpu_torch),
+or, with ``--postselected``, that of postselected 2-check cultivation.
 
     python3 dev/torch_profile_d3.py [--batch 1048576] [--batches 4] [--out build/profile_d3]
+                                    [--postselected]
 
 1. Stage split of the sampler's own batch step (``_sample_batch``) on the
    host clock, with ``torch.cuda.synchronize()`` after each stage: noise
@@ -12,7 +14,12 @@
    do not overlap), and device time by kernel. The Chrome trace and the
    full table go under ``--out``.
 
-Needs a CUDA device and the d3 program committed in the package.
+``--postselected`` profiles postselected 2-check cultivation instead
+(``chip_smoke.py`` phase 10: the mask over all detectors, both reference
+samples): part 2 only, since its batches do not go through
+``_sample_batch``.
+
+Needs a CUDA device and the committed programs.
 """
 
 from __future__ import annotations
@@ -37,30 +44,9 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def main() -> None:
+def stage_split(sampler, B: int, n: int) -> None:
+    """Part 1: medians over ``n`` batches of each stage of ``_sample_batch``."""
     import torch
-
-    from tsim_tpu_torch.models import distillation_d3
-
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batch", type=int, default=1 << 20)
-    parser.add_argument("--batches", type=int, default=4)
-    parser.add_argument("--out", default="build/profile_d3")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    print(smi.stdout.strip())
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    B, n = args.batch, args.batches
-
-    sampler = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cuda")
-    sampler.sample(B, batch_size=B)  # warm-up: kernel build and first launches
-    torch.cuda.synchronize()
 
     stages = {k: [] for k in ("noise", "ladder", "pack", "d2h", "unpack")}
     result = np.empty((B, sampler._program.num_outputs), dtype=np.bool_)
@@ -81,16 +67,54 @@ def main() -> None:
         print(f"  {k:7s} {med:9.3f}  ({100 * med / total:5.1f}%)")
     print(f"  {'sum':7s} {total:9.3f}  -> {B / total * 1e3:.0f} shots/s with every stage serialised")
 
+
+def main() -> None:
+    import torch
+
+    from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, default=1 << 20)
+    parser.add_argument("--batches", type=int, default=4)
+    parser.add_argument("--out", default="build/profile_d3")
+    parser.add_argument("--postselected", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip())
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    B, n = args.batch, args.batches
+
+    if args.postselected:
+        sampler = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(seed=0, device="cuda")
+        kw = dict(
+            postselection_mask=np.ones(sampler._num_detectors, bool), separate_observables=True,
+            use_detector_reference_sample=True, use_observable_reference_sample=True,
+        )
+    else:
+        sampler = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cuda")
+        kw = {}
+    sampler.sample(B, batch_size=B, **kw)  # warm-up: kernel build and first launches
+    torch.cuda.synchronize()
+
+    if not args.postselected:
+        stage_split(sampler, B, n)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sampler.sample(n * B, batch_size=B)
+    sampler.sample(n * B, batch_size=B, **kw)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sampler.sample(n * B, batch_size=B)
+        sampler.sample(n * B, batch_size=B, **kw)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     # Device-side entries only: a CPU op's self device time repeats the

@@ -1,5 +1,6 @@
 """The CUDA kernels' wrappers, and each kernel against its plain version:
-the f32 sampling kernel (``sample_eval.cu``) and the exact kernels
+the f32 sampling kernels (``sample_eval.cu``: packed K1/K2, per-term
+K3a/K3b, the self-test K4 and the stage ablation K8) and the exact kernels
 (``exact_eval.cu``).
 
 This file imports no JAX, so the card's tests run on a machine without it:
@@ -20,7 +21,8 @@ import torch
 from tsim_tpu_torch.compile.evaluate import evaluate_abs
 from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables
-from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, sample_product_sum_reference
+from tsim_tpu_torch.compile import sample_eval
+from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, sample_product_sum_reference, synthetic_rung
 from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import build
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
@@ -69,7 +71,7 @@ def test_cpu_dispatch_takes_plain_version(d3_rungs):
         mag = evaluate_abs_sample(tables, _rows(tables.n_params, 33, 1))
         assert mag.shape == (33,) and mag.dtype == torch.float32 and mag.device.type == "cpu"
         assert torch.isfinite(mag).all()
-    assert kernel.launch_counts == {"wide": 0, "small": 0}
+    assert kernel.launch_counts == dict.fromkeys(kernel.launch_counts, 0)
 
 
 def test_build_is_keyed_by_sources():
@@ -91,7 +93,71 @@ def test_kernel_matches_plain_version(d3_rungs, cuda, batch):
         torch.cuda.synchronize()
         scale = want.norm(dim=1, keepdim=True)
         assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (i, batch)
-    assert kernel.launch_counts == {"wide": 3, "small": 3}
+    assert (kernel.launch_counts["wide"], kernel.launch_counts["small"]) == (3, 3)
+
+
+def _f32_rungs():
+    """(name, rung) for every rung of d3 distillation and of 1- and 2-check
+    cultivation, and two seeded rungs over 160 parameters (five words)."""
+    out = []
+    for label, exported in (
+        ("d3", distillation_d3(p=0.05).load()),
+        ("cultivation1", cultivation_d3(p=0.001, checks=1).load()),
+        ("cultivation", cultivation_d3(p=0.001, checks=2).load()),
+    ):
+        for comp in exported.program.components:
+            out += [(f"{label}[{i}]", c) for i, c in enumerate(comp.compiled_scalar_graphs)]
+    out += [(f"seeded G={g} P=160", synthetic_rung(s, g, 160, (6, 4, 4, 2))) for s, g in ((11, 40), (12, 8))]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+def test_per_term_kernels_match_plain_version(cuda, batch):
+    """K3a/K3b on every rung (and K1/K2 where a row fits four words) against
+    the plain version, within rtol 1e-5 of the row's mass (sum over graphs
+    of |product|): cultivation's graph sums cancel to near zero on most
+    rows, so f32 rounding is only small against the mass."""
+    kernel.reset_launch_counts()
+    for i, (name, csg) in enumerate(_f32_rungs()):
+        tables = SampleTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        want, mass = sample_product_sum_reference(tables, x, with_mass=True)
+        scale = mass[:, None]
+        layout = kernel.layout(tables.num_graphs)
+        for config in [f"per_term_{layout}"] + ([layout] if tables.words <= 4 else []):
+            got = kernel.launch(tables, x, config)
+            torch.cuda.synchronize()
+            assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (name, config, batch)
+    assert min(kernel.launch_counts[c] for c in kernel.CONFIGURATIONS) > 0
+
+
+@pytest.mark.cuda
+def test_self_test_passes_on_the_card(cuda):
+    sample_eval.reset_self_test()
+    kernel.reset_launch_counts()
+    errors = sample_eval.self_test(cuda)
+    assert set(errors) == set(kernel.CONFIGURATIONS) and max(errors.values()) <= 1e-5
+    assert kernel.launch_counts["self_test"] == 4
+    tables = SampleTables(_f32_rungs()[3][1]).to(cuda)
+    sample_eval.evaluate_abs_sample_f32(tables, _rows(tables.n_params, 5, 0, cuda))
+    assert kernel.launch_counts["self_test"] == 8  # the first launch on the device ran it again
+
+
+@pytest.mark.cuda
+def test_ablation_oracles(cuda):
+    """K8 on the 307-graph cultivation rung: "full" is K1 bit for bit, the
+    variants with whole families equal the plain version on tables whose
+    other families are emptied, the rest are finite."""
+    from dev.torch_kernel_ablate import ablate_rung
+
+    circuit = cultivation_d3(p=0.001, checks=2).load().program.components[0].compiled_scalar_graphs[-1]
+    kernel.reset_launch_counts()
+    results = ablate_rung(circuit, _rows(circuit.n_params, 4097, 3, cuda), reps=1)
+    assert [r["name"] for r in results] == [n for n, _, _ in kernel.ABLATION_VARIANTS]
+    assert all(r["ok"] for r in results), results
+    assert next(r for r in results if r["name"] == "full")["err"] == 0.0
+    assert kernel.launch_counts["ablate"] == 6 * 3  # check, warm-up and one timed call each
 
 
 def _exact_rungs():

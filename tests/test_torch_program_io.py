@@ -2,10 +2,10 @@
 
 Each committed program (``distillation_d3_p0.05.npz``,
 ``distillation_d3_p0.05_state_probs.npz``,
-``cultivation_d3_p0.001_checks2.npz``) must equal, array for array, a fresh
-export from tsim_tpu, apart from the reference data that tsim_tpu sampled
-once; and the port must load and run them in a process where importing
-JAX fails.
+``cultivation_d3_p0.001_checks1.npz``, ``cultivation_d3_p0.001_checks2.npz``)
+must equal, array for array, a fresh export from tsim_tpu, apart from the
+reference data that tsim_tpu sampled once; and the port must load and run
+them in a process where importing JAX fails.
 """
 
 import subprocess
@@ -18,6 +18,8 @@ import pytest
 
 import tsim_tpu
 from dev.export_torch_program import (
+    CHECKS1_SHOTS,
+    POSTSELECTED_SHOTS,
     REPLAY_ROWS,
     compile_cultivation,
     compile_d3,
@@ -25,7 +27,7 @@ from dev.export_torch_program import (
     export_sampler,
 )
 from tsim_tpu_torch import program_io
-from tsim_tpu_torch.models.cultivation import CULTIVATION_PROGRAM
+from tsim_tpu_torch.models.cultivation import CULTIVATION_CHECKS1_PROGRAM, CULTIVATION_PROGRAM
 from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
 
 REPO = Path(__file__).resolve().parents[1]
@@ -150,6 +152,28 @@ def test_committed_cultivation_equals_fresh_export():
     assert r["draw_uniforms"].shape == (len(rungs) - 1, REPLAY_ROWS)
     assert r["bits"].shape == (REPLAY_ROWS, 12) and r["bits"].dtype == np.uint8
     assert committed.meta["replay_norm_deviation"] <= 1e-5
+    # tsim_tpu's postselected reference: all detectors masked, both references on.
+    meta = committed.meta
+    assert meta["reference_shots"] == POSTSELECTED_SHOTS
+    assert meta["survivor_fraction"] == meta["reference_survivors"] / POSTSELECTED_SHOTS
+    assert 0.9 < meta["survivor_fraction"] < 1
+    means = r["survivor_means"]
+    assert means.shape == (12,) and not means[:11].any() and 0 < means[11] < 1
+    assert r["reference_sample"].shape == (12,) and r["reference_sample"].dtype == np.uint8
+
+
+def test_committed_cultivation_checks1_equals_fresh_export():
+    committed = program_io.load_npz(CULTIVATION_CHECKS1_PROGRAM)
+    _assert_same(
+        committed, export_sampler(compile_cultivation(checks=1)), skip=("reference_means", "meta")
+    )
+    prog = committed.program
+    assert committed.num_detectors == 10 and prog.num_outputs == 11
+    rungs = prog.components[0].compiled_scalar_graphs
+    assert [c.num_graphs for c in rungs] == [1, 4, 8, 8, 16, 16, 16, 16, 64]
+    assert committed.meta["reference_shots"] == CHECKS1_SHOTS
+    means = committed.reference_means
+    assert means.shape == (11,) and ((means > 0) & (means < 1)).all()
 
 
 def test_port_runs_without_jax():
@@ -169,6 +193,24 @@ def test_port_runs_without_jax():
         out = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(
             seed=0, device="cpu", evaluation="exact").sample(64, batch_size=64)
         assert out.shape == (64, 11), out.shape
+        det, obs = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(
+            seed=0, device="cpu").sample(
+            64, batch_size=32, postselection_mask=[True] * 11, separate_observables=True,
+            use_detector_reference_sample=True, use_observable_reference_sample=True)
+        assert det.shape == (64, 11) and obs.shape == (64, 1), (det.shape, obs.shape)
+        out = cultivation_d3(p=0.001, checks=1).compile_detector_sampler(seed=0, device="cpu").sample(64)
+        assert out.shape == (64, 10), out.shape
+        import torch
+        if not torch.cuda.is_available():
+            try:
+                cultivation_d3(p=0.001, checks=1).compile_detector_sampler(seed=0)
+            except RuntimeError as exc:
+                assert 'device="cpu"' in str(exc)
+            else:
+                raise AssertionError("no device and no card must raise")
+        from tsim_tpu_torch.compile import sample_eval
+        tables, rows = sample_eval.probe_inputs("cpu")
+        import dev.torch_kernel_ablate
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "tsim_tpu.")) or m == "tsim_tpu"]
         assert bad == ["jax"], bad
         print("ok")

@@ -224,7 +224,16 @@ def test_table_buffer_follows_layout(d3_rungs):
 
 
 def test_too_many_parameters_raise():
+    """Past 128 parameters (four packed words) the exact tables still raise;
+    the f32 tables build and evaluate (on the card through the per-term
+    kernels, see test_torch_per_term.py)."""
     params = [f"f{i}" for i in range(129)]
     csg = _scalar_csg(lambda s: s.add_node(0.25, ["f128"]), params=params)
+    port = rung_from_reference(csg)
     with pytest.raises(NotImplementedError, match="packed words"):
-        SampleTables(rung_from_reference(csg))
+        ExactTables(port)
+    tables = SampleTables(port)
+    assert tables.words == 5 and kernel.configuration(tables.num_graphs, tables.words) == "per_term_small"
+    vals = _rows(129, 9, 0)
+    got = sample_eval.evaluate_abs_sample(tables, torch.from_numpy(vals)).numpy()
+    np.testing.assert_allclose(got, np.asarray(evaluate_abs(csg, vals)), rtol=1e-4, atol=1e-6)

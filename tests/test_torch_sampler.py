@@ -138,16 +138,22 @@ def test_observable_layouts(d3):
     )
 
 
-def test_unported_options_raise(d3):
+def test_unported_options_raise(d3, tmp_path):
+    """Postselection and reference samples are ported (test_torch_postselection.py);
+    checkpointing, other circuits and fully-direct programs still raise."""
     s = d3.compile_detector_sampler(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="postselection"):
-        s.sample(10, postselection_mask=np.zeros(15, bool))
-    with pytest.raises(NotImplementedError, match="reference"):
-        s.sample(10, use_detector_reference_sample=True)
+    assert s.sample(10, postselection_mask=np.ones(15, bool)).shape == (10, 15)
+    assert s.sample(10, use_detector_reference_sample=True).shape == (10, 15)
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        s.save(tmp_path / "sampler.ckpt")
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        port_sampler.CompiledDetectorSampler.load(tmp_path / "sampler.ckpt")
     with pytest.raises(ValueError, match="mutually exclusive"):
         s.sample(10, separate_observables=True, append_observables=True)
     with pytest.raises(NotImplementedError, match="distillation_d3"):
         distillation_d3(p=0.01)
+    with pytest.raises(NotImplementedError, match="cultivation_d3"):
+        cultivation_d3(p=0.001, checks=3)
 
 
 def test_fully_direct_program_raises():

@@ -15,13 +15,24 @@ rung exact, as ``tsim_tpu``'s ``TSIM_TPU_SAMPLE_EVAL=exact`` does.
 
 A CPU tensor runs the plain version; a CUDA tensor runs the hand-written
 kernels (``kernels/``), which raise if they cannot be built or launched.
+The first f32 launch on each device runs the kernels' start-up self-test
+(:func:`ensure_self_test`, the counterpart of tsim_tpu's ``_tpack_probe``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import sample_eval as _kernel
+from ..program_io import (
+    CompiledScalarGraphs,
+    HalfPiPhases,
+    NodePhases,
+    PhasePairs,
+    PiProducts,
+    ScalarPrefactor,
+)
 from .exact_eval import evaluate_abs_exact
 from .exact_tables import ExactTables
 from .sample_tables import _SQRT_HALF, SampleTables, sample_eligible, unpack_words
@@ -65,13 +76,35 @@ def _rot_staged(re, im, k):
     return torch.where(b2, -re, re), torch.where(b2, -im, im)
 
 
-def sample_product_sum_reference(tables: SampleTables, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the sampling kernel: (B, P) uint8 -> (B, 2) f32.
+CHUNK_BYTES = 1 << 30  # largest (rows, T * G) float32 parity array of one row chunk
 
-    Follows ``_product_body_sample_packed`` with the graph axis summed.
-    Parities are a float32 matmul mod 2 (row sums are at most P, exact in
-    f32), because CUDA tensors have no integer matmul.
+
+def sample_product_sum_reference(tables: SampleTables, x: torch.Tensor, *, with_mass: bool = False):
+    """Plain PyTorch version of the sampling kernels: (B, P) uint8 -> (B, 2) f32.
+
+    Follows ``_product_body_sample_packed`` (whose per-term twin
+    ``_product_body_sample`` computes the same function) with the graph axis
+    summed. Parities are a float32 matmul mod 2 (row sums are at most P,
+    exact in f32), because CUDA tensors have no integer matmul. Rows are
+    evaluated in chunks whose parity arrays stay within CHUNK_BYTES; each
+    row's result does not depend on the chunking.
+
+    ``with_mass=True`` also returns each row's mass, (B,) f32: the sum over
+    graphs of each graph's |product|. It is the scale of the f32 rounding
+    in the graph sum, which may cancel to (near) zero, so a kernel is held
+    to the plain version relative to it.
     """
+    per_row = 4 * max(1, *tables.dims) * max(1, tables.num_graphs)
+    rows = max(1, CHUNK_BYTES // per_row)
+    parts = [
+        _product_sum(tables, x[i : i + rows], with_mass) for i in range(0, max(x.shape[0], 1), rows)
+    ]
+    total = torch.cat([p[0] for p in parts])
+    return (total, torch.cat([p[1] for p in parts])) if with_mass else total
+
+
+def _product_sum(tables: SampleTables, x: torch.Tensor, with_mass: bool):
+    """((B, 2) graph sums, (B,) masses or None) of the rows ``x``."""
     t1, t2, t3, t4 = tables.dims
     v = tables.views()
     xf = x.to(torch.float32)
@@ -128,9 +161,9 @@ def sample_product_sum_reference(tables: SampleTables, x: torch.Tensor) -> torch
             re, im = re * fr - im * fi, re * fi + im * fr
 
     pr, pi_ = v["pre"][0], v["pre"][1]
-    return torch.stack(
-        [(re * pr - im * pi_).sum(dim=1), (re * pi_ + im * pr).sum(dim=1)], dim=1
-    )
+    re, im = re * pr - im * pi_, re * pi_ + im * pr
+    mass = torch.sqrt(re**2 + im**2).sum(dim=1) if with_mass else None
+    return torch.stack([re.sum(dim=1), im.sum(dim=1)], dim=1), mass
 
 
 def _magnitude(total: torch.Tensor, bias: int) -> torch.Tensor:
@@ -151,11 +184,13 @@ def _check_input(tables: SampleTables, x: torch.Tensor) -> None:
 
 
 def evaluate_abs_sample_f32(tables: SampleTables, x: torch.Tensor) -> torch.Tensor:
-    """|amplitude| per row: plain version on the CPU, CUDA kernel otherwise."""
+    """|amplitude| per row: plain version on the CPU, CUDA kernel otherwise
+    (after the device's self-test)."""
     _check_input(tables, x)
     if x.device.type == "cpu":
         total = sample_product_sum_reference(tables, x)
     else:
+        ensure_self_test(x.device)
         total = _kernel.sample_product_sum(tables, x.contiguous())
     return _magnitude(total, tables.bias)
 
@@ -175,3 +210,116 @@ def evaluate_abs_sample(tables: SampleTables | ExactTables, x: torch.Tensor) -> 
             "build its tables with rung_tables(), which evaluates it exactly"
         )
     return evaluate_abs_sample_f32(tables, x)
+
+
+# ------------------------------------------------------------ K4 self-test
+
+# The probe: graphs of the wide and of the small tables, parameters, rows,
+# terms per family, and its tolerance relative to the row's mass.
+PROBE_GRAPHS = {"wide": 128, "small": 8}
+PROBE_PARAMS, PROBE_ROWS, PROBE_TERMS = 8, 128, (2, 2, 2, 2)
+PROBE_RTOL, PROBE_ATOL = 1e-5, 1e-8
+
+# Self-test outcome per device: None once passed, else the failure message.
+_self_tested: dict[str, str | None] = {}
+
+
+def synthetic_rung(seed: int, num_graphs: int, n_params: int, terms=(2, 2, 2, 2)) -> CompiledScalarGraphs:
+    """A seeded rung of ``num_graphs`` graphs over ``n_params`` parameters
+    with ``terms = (T1, T2, T3, T4)`` term slots per family, every family
+    live (each graph keeps at least one node-phase and one phase-pair term),
+    and dyadic prefactors near 1: the probe's rungs, and test data for the
+    kernels."""
+    rng = np.random.default_rng(seed)
+    t1, t2, t3, t4 = terms
+    G, P = num_graphs, n_params
+
+    def bits(t):
+        return rng.integers(0, 2, size=(t, G, P), dtype=np.uint8)
+
+    def counts(t):
+        return rng.integers(min(t, 1), t + 1, size=G).astype(np.int32)
+
+    def ints(high, t):
+        return rng.integers(0, high, size=(t, G)).astype(np.int32)
+
+    floatfactor = np.zeros((G, 4), np.int32)
+    floatfactor[:, 0] = rng.integers(1, 3, size=G)
+    floatfactor[:, 1] = rng.integers(-1, 2, size=G)
+    return CompiledScalarGraphs(
+        num_graphs=G,
+        n_params=P,
+        node_phases=NodePhases(phases=ints(8, t1), params=bits(t1), counts=counts(t1)),
+        halfpi_phases=HalfPiPhases(coeffs=2 * ints(4, t2), params=bits(t2)),
+        pi_products=PiProducts(
+            psi_const=ints(2, t3), psi_params=bits(t3), phi_const=ints(2, t3), phi_params=bits(t3)
+        ),
+        phase_pairs=PhasePairs(
+            alpha=ints(8, t4), alpha_params=bits(t4), beta=ints(8, t4), beta_params=bits(t4),
+            counts=counts(t4),
+        ),
+        prefactor=ScalarPrefactor(
+            phase_indices=rng.integers(0, 8, size=G).astype(np.int32),
+            floatfactor=floatfactor,
+            power2=rng.integers(-2, 3, size=G).astype(np.int32),
+            approximate_floatfactors=np.tile(np.float32([1.0, 0.0]), (G, 1)),
+        ),
+    )
+
+
+def probe_rungs() -> dict:
+    """The self-test's seeded rungs, {"wide": rung, "small": rung}, every
+    family live (tsim_tpu's probe has node phases only and zero tables)."""
+    return {
+        name: synthetic_rung(seed, graphs, PROBE_PARAMS, PROBE_TERMS)
+        for seed, (name, graphs) in enumerate(PROBE_GRAPHS.items())
+    }
+
+
+def probe_inputs(device) -> tuple[dict, torch.Tensor]:
+    """The self-test's inputs on ``device``: ({"wide": tables, "small":
+    tables} of :func:`probe_rungs`, (PROBE_ROWS, PROBE_PARAMS) uint8 rows)."""
+    tables = {name: SampleTables(rung).to(device) for name, rung in probe_rungs().items()}
+    rows = np.random.default_rng(7).integers(0, 2, size=(PROBE_ROWS, PROBE_PARAMS), dtype=np.uint8)
+    return tables, torch.from_numpy(rows).to(device)
+
+
+def self_test(device) -> dict:
+    """Launch every f32 configuration at the probe's shape and hold it
+    against the plain version; return {configuration: max error relative
+    to the row's mass}. Raises RuntimeError naming the first configuration
+    that disagrees; nothing switches configuration."""
+    tables, rows = probe_inputs(device)
+    errors = {}
+    for config in _kernel.CONFIGURATIONS:
+        t = tables[config.removeprefix("per_term_")]
+        got = _kernel.launch(t, rows, config, count_as="self_test")
+        want, mass = sample_product_sum_reference(t, rows, with_mass=True)
+        scale = mass[:, None]
+        err = (got - want).abs()
+        errors[config] = float((err / scale.clamp_min(1e-30)).max())
+        if not (torch.isfinite(got).all() and (err <= PROBE_ATOL + PROBE_RTOL * scale).all()):
+            raise RuntimeError(
+                f"sampling kernel self-test: configuration {config!r} disagrees with the plain "
+                f"version on {device} (max relative error {errors[config]:.3e}, "
+                f"tolerance {PROBE_RTOL})"
+            )
+    return errors
+
+
+def ensure_self_test(device) -> None:
+    """Run the self-test once per device and process; re-raise its failure."""
+    key = str(torch.device(device))
+    if key not in _self_tested:
+        try:
+            self_test(device)
+            _self_tested[key] = None
+        except RuntimeError as exc:
+            _self_tested[key] = str(exc)
+    if _self_tested[key] is not None:
+        raise RuntimeError(_self_tested[key])
+
+
+def reset_self_test() -> None:
+    """Forget every device's self-test, so the next f32 launch runs it again."""
+    _self_tested.clear()

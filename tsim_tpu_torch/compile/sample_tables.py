@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-MAX_WORDS = 4  # parameters per shot up to 128; raise beyond until a workload needs more
+MAX_WORDS = 4  # packed words a shot row keeps in registers (128 parameters); longer rows go per-term
 
 _SQRT_HALF = np.float32(0.7071067811865476)
 
@@ -179,11 +179,6 @@ class SampleTables(nn.Module):
             np.asarray(circuit.pi_products.psi_const).shape[0],
             np.asarray(circuit.phase_pairs.alpha).shape[0],
         )
-        if self.words > MAX_WORDS:
-            raise NotImplementedError(
-                f"{self.n_params} parameters need {self.words} packed words; the "
-                f"sampling kernel takes at most {MAX_WORDS} ({32 * MAX_WORDS} parameters)"
-            )
         tables = build_tables(circuit, self.bias)
         parts = []
         for name, shape, kind in self.layout():

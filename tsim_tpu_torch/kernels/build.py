@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
             vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp,
         ]
         lib.tsim_sample_eval.restype = i32
+        lib.tsim_sample_eval_ablate.argtypes = lib.tsim_sample_eval.argtypes
+        lib.tsim_sample_eval_ablate.restype = i32
         lib.tsim_exact_eval.argtypes = [
             vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,
         ]

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from . import build
-from .sample_eval import configuration
+from .sample_eval import layout as configuration
 
 MAX_TILE = 128  # graphs per block of the wide configuration
 

@@ -1,23 +1,47 @@
-"""Wrapper of the CUDA sampling kernel (``csrc/sample_eval.cu``).
+"""Wrappers of the CUDA sampling kernels (``csrc/sample_eval.cu``).
 
-It checks its inputs, allocates the output, launches on PyTorch's current
-stream and raises if the launch fails. There is no fallback: the plain
-version (``compile/sample_eval.py::sample_product_sum_reference``) runs
-only for CPU tensors, chosen by the caller.
+Each launch checks its inputs, allocates the output, launches on PyTorch's
+current stream, raises if the launch fails and counts the launch. There is
+no fallback: the plain version
+(``compile/sample_eval.py::sample_product_sum_reference``) runs only for CPU
+tensors, chosen by the caller, which also runs the start-up self-test
+(``compile/sample_eval.py::ensure_self_test``).
+
+Configurations by name (and the TPU kernel each replaces): ``wide`` (K1),
+``small`` (K2), ``per_term_wide`` (K3a), ``per_term_small`` (K3b);
+``self_test`` counts the launches of the start-up self-test (K4) and
+``ablate`` those of the stage ablation (K8, ``dev/torch_kernel_ablate.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
+from ..compile.sample_tables import MAX_WORDS
 from . import build
 
-SMALL_G_CUTOFF = 24  # graphs; fewer take the one-thread-per-shot configuration
+SMALL_G_CUTOFF = 24  # graphs; fewer take the one-thread-per-shot configurations
 
-# Launches per configuration, counted where each launch succeeds.
-launch_counts = {"wide": 0, "small": 0}
+# Codes of tsim_sample_eval's ``config`` argument, by position.
+CONFIGURATIONS = ("small", "wide", "per_term_small", "per_term_wide")
+
+# Variants of tsim_sample_eval_ablate, by position, named as in
+# dev/kernel_ablate.py: (name, families whose parities are formed, families
+# whose factors are applied).
+ABLATION_VARIANTS = (
+    ("empty", (), ()),
+    ("par1", (1,), ()),
+    ("par-all", (1, 2, 3, 4), ()),
+    ("par1+T1", (1,), (1,)),
+    ("par+T1..T3", (1, 2, 3), (1, 2, 3)),
+    ("full", (1, 2, 3, 4), (1, 2, 3, 4)),
+)
+
+# Launches per kernel, counted where each launch succeeds.
+launch_counts = {name: 0 for name in (*CONFIGURATIONS, "self_test", "ablate")}
 
 
 def reset_launch_counts() -> None:
@@ -25,43 +49,90 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def configuration(num_graphs: int) -> str:
+def layout(num_graphs: int) -> str:
+    """"small" below SMALL_G_CUTOFF graphs, else "wide" (the TPU's
+    transposed/wide split, ``pallas_sample._small_g_cutoff``)."""
     return "small" if num_graphs < SMALL_G_CUTOFF else "wide"
 
 
-def sample_product_sum(tables, x: torch.Tensor) -> torch.Tensor:
-    """(B, P) uint8 parameter rows on a CUDA device -> (B, 2) float32 (re, im)
-    of the graph-summed product, for the rung held by ``tables``."""
+def use_packed() -> bool:
+    """False where ``TSIM_TPU_SAMPLE_TPACK=0``, tsim_tpu's switch to the
+    per-term kernels (``pallas_sample._use_tpack``), read at every call.
+    The switch exists only to mirror tsim_tpu in tests: the per-term
+    kernels are slower, and rows over MAX_WORDS words take them without it."""
+    return os.environ.get("TSIM_TPU_SAMPLE_TPACK", "1") != "0"
+
+
+def configuration(num_graphs: int, words: int = 1) -> str:
+    """The f32 configuration of a rung: per-term where its rows need more
+    than MAX_WORDS packed words or the packed kernels are switched off."""
+    base = layout(num_graphs)
+    if words > MAX_WORDS or not use_packed():
+        return f"per_term_{base}"
+    return base
+
+
+def _check(tables, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"the sampling kernel takes CUDA tensors, got {x.device}")
+        raise ValueError(f"the sampling kernels take CUDA tensors, got {x.device}")
     if x.dtype != torch.uint8 or x.dim() != 2 or x.shape[1] != tables.n_params:
-        raise ValueError(
-            f"expected (B, {tables.n_params}) uint8, got {tuple(x.shape)} {x.dtype}"
-        )
+        raise ValueError(f"expected (B, {tables.n_params}) uint8, got {tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("parameter rows must be contiguous")
     flat = tables.flat
     if flat.device != x.device or flat.dtype != torch.int32 or not flat.is_contiguous():
         raise ValueError(f"tables on {flat.device} ({flat.dtype}), rows on {x.device}")
     if tables.num_graphs <= 0:
-        raise ValueError("the sampling kernel needs at least one graph")
+        raise ValueError("the sampling kernels need at least one graph")
+
+
+def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str) -> torch.Tensor:
+    """Launch ``entry`` (``tsim_sample_eval`` or ``tsim_sample_eval_ablate``)
+    with its mode ``code``, raise on failure, count under ``count_as``."""
+    _check(tables, x)
     B = x.shape[0]
     out = torch.empty((B, 2), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
     lib = build.load()
-    config = configuration(tables.num_graphs)
     t1, t2, t3, t4 = tables.dims
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tsim_sample_eval(
+        err = getattr(lib, entry)(
             ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
-            ctypes.c_void_p(flat.data_ptr()), tables.num_graphs,
-            t1, t2, t3, t4, tables.words, int(config == "wide"),
+            ctypes.c_void_p(tables.flat.data_ptr()), tables.num_graphs,
+            t1, t2, t3, t4, tables.words, code,
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream),
         )
     if err != 0:
         msg = lib.tsim_cuda_error_string(err).decode()
-        raise RuntimeError(f"sample_eval ({config}) launch failed: cudaError {err}: {msg}")
-    launch_counts[config] += 1
+        raise RuntimeError(f"{entry} ({count_as}) launch failed: cudaError {err}: {msg}")
+    launch_counts[count_as] += 1
     return out
+
+
+def launch(tables, x: torch.Tensor, config: str, count_as: str | None = None) -> torch.Tensor:
+    """One launch of configuration ``config`` (one of CONFIGURATIONS) on
+    (B, P) uint8 rows on a CUDA device -> (B, 2) float32 (re, im)."""
+    if config not in CONFIGURATIONS:
+        raise ValueError(f"configuration must be one of {CONFIGURATIONS}, got {config!r}")
+    if not config.startswith("per_term") and tables.words > MAX_WORDS:
+        raise ValueError(f"{config}: {tables.words} words per row, the packed kernels take {MAX_WORDS}")
+    return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or config)
+
+
+def ablate(tables, x: torch.Tensor, variant: str) -> torch.Tensor:
+    """The wide kernel with the stages of ablation ``variant`` (K8)."""
+    names = [name for name, _, _ in ABLATION_VARIANTS]
+    if variant not in names:
+        raise ValueError(f"variant must be one of {names}, got {variant!r}")
+    if tables.words > MAX_WORDS:
+        raise ValueError(f"the ablation runs the packed wide kernel: at most {MAX_WORDS} words")
+    return _call("tsim_sample_eval_ablate", names.index(variant), tables, x, "ablate")
+
+
+def sample_product_sum(tables, x: torch.Tensor) -> torch.Tensor:
+    """(B, P) uint8 parameter rows on a CUDA device -> (B, 2) float32 (re, im)
+    of the graph-summed product, for the rung held by ``tables``, in the
+    rung's configuration."""
+    return launch(tables, x, configuration(tables.num_graphs, tables.words))

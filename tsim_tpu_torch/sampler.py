@@ -4,8 +4,10 @@ Counterpart of ``tsim_tpu/sampler.py`` for programs that come as data
 (``program_io``). Each batch draws noise on the device, copies the direct
 outputs, runs every component's plugged-circuit ladder (one evaluation
 per rung, f32 or exact, chain-rule Bernoulli draws), packs the bits along
-the shot axis, copies them to the host and unpacks them there.
-:class:`CompiledStateProbs` evaluates joint-mode programs exactly.
+the shot axis, copies them to the host and unpacks them there. With a
+postselection mask, shots whose direct detectors fire are discarded on the
+device before any evaluation. :class:`CompiledStateProbs` evaluates
+joint-mode programs exactly.
 """
 
 from __future__ import annotations
@@ -72,6 +74,15 @@ class ProgramTables(nn.Module):
         self.components = nn.ModuleList(
             ComponentTables(c, evaluation) for c in program.components
         )
+
+    def direct_outputs(self, f_params: torch.Tensor) -> torch.Tensor:
+        """(B, num_outputs) uint8: the direct outputs in their output columns, 0 elsewhere."""
+        out = torch.zeros(
+            (f_params.shape[0], self.num_outputs), dtype=torch.uint8, device=f_params.device
+        )
+        if len(self.direct_f_indices):
+            out[:, self.direct_output_order] = self.direct_bits(f_params)
+        return out
 
     def direct_bits(self, f_params: torch.Tensor) -> torch.Tensor:
         """(B, n_direct) uint8 direct outputs of noise configurations ``f_params``."""
@@ -157,6 +168,15 @@ def sample_program_with_deviation(tables: ProgramTables, f_params, generator, un
     return combined, max_dev
 
 
+def _direct_detector_mask(program, num_detectors: int) -> np.ndarray:
+    """(num_detectors,) bool, True where a detector is a direct output (the
+    ``det_mask`` of tsim_tpu's ``_plan_direct_scatter``)."""
+    n = len(np.asarray(program.direct_f_indices))
+    mask = np.zeros(program.num_outputs, dtype=np.bool_)
+    mask[np.asarray(program.output_order, np.int64)[:n]] = True
+    return mask[:num_detectors]
+
+
 def _pack_bitplanes(out: torch.Tensor) -> torch.Tensor:
     """(B, n) 0/1 uint8 -> (n, ceil(B/8)) uint8, packed along shots, little bit order."""
     batch, n = out.shape
@@ -184,10 +204,22 @@ def _check_norm_deviation(max_dev, evaluation: str = "f32") -> None:
         )
 
 
+def _to_host(bits: torch.Tensor) -> np.ndarray:
+    """(B, n) 0/1 uint8 on the device -> (B, n) bool on the host, carried as
+    bitplanes packed along the shots."""
+    host = _pack_bitplanes(bits).cpu().numpy()
+    return np.unpackbits(host, axis=1, bitorder="little")[:, : bits.shape[0]].T.view(np.bool_)
+
+
 def _resolve_device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """``device``, or "cuda" for None; a CUDA device must exist (no fallback)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the sampler runs on the card; pass "
+            'device="cpu" to run on the CPU with the plain versions of the kernels'
+        )
+    return device
 
 
 class _CompiledSamplerBase:
@@ -209,9 +241,23 @@ class _CompiledSamplerBase:
         self._num_detectors = int(exported.num_detectors)
         self._tables = ProgramTables(exported.program, evaluation).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
+        self._direct_detector_mask = _direct_detector_mask(exported.program, self._num_detectors)
+        self._reference_seed = seed
+        self._reference: np.ndarray | None = None
         # Largest normalization deviation of the last sample() call (the
         # monitor warns above norm_deviation_tolerance()).
         self.last_norm_deviation: float | None = None
+
+    def save(self, path) -> None:
+        raise NotImplementedError(
+            "checkpointing (tsim_tpu's save/load) is not ported yet; it is queued in ROADMAP.md 1.7"
+        )
+
+    @classmethod
+    def load(cls, path):
+        raise NotImplementedError(
+            "checkpointing (tsim_tpu's save/load) is not ported yet; it is queued in ROADMAP.md 1.7"
+        )
 
     def _peak_bytes_per_sample(self) -> int:
         peak = max(8 * self._device_channels.num_f, self._device_channels.peak_bytes_per_shot)
@@ -233,24 +279,53 @@ class _CompiledSamplerBase:
             available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
         return max(1, int(available * 0.5) // self._peak_bytes_per_sample())
 
-    def _sample_batches(self, shots: int, batch_size: int | None = None) -> np.ndarray:
+    @staticmethod
+    def _validate_shot_args(shots: int, batch_size: int | None) -> None:
         if shots < 0:
             raise ValueError(f"shots must be non-negative, got {shots}")
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
-        num_outputs = self._program.num_outputs
-        if shots == 0:
-            return np.empty((0, num_outputs), dtype=np.bool_)
+
+    def _require_components(self) -> None:
         if not self._program.components:
             raise NotImplementedError(
                 "fully-direct programs (no components) sample through tsim_tpu's "
                 "native frame sampler, which the port does not have yet"
             )
-        if batch_size is None:
-            num_batches = max(1, ceil(shots / self._estimate_batch_size()))
-            batch_size = ceil(shots / num_batches)
-        else:
-            num_batches = ceil(shots / batch_size)
+
+    def _resolve_batch_size(self, shots: int, batch_size: int | None) -> int:
+        if batch_size is not None:
+            return batch_size
+        num_batches = max(1, ceil(shots / self._estimate_batch_size()))
+        return ceil(shots / num_batches)
+
+    def _reference_sample(self) -> np.ndarray:
+        """The outputs of the all-zero noise row, (num_outputs,) bool.
+
+        Counterpart of tsim_tpu's ``_compute_reference_sample``: the ladder
+        on f = 0, computed once per sampler and cached. Its draws come from
+        a generator of their own, so the sample stream does not depend on
+        whether a reference was asked for; outputs that are random without
+        noise take one draw, as in tsim_tpu.
+        """
+        if self._reference is None:
+            self._require_components()
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(self._reference_seed)
+            f_ref = torch.zeros((1, self._device_channels.num_f), dtype=torch.uint8, device=self.device)
+            out, dev = sample_program_with_deviation(self._tables, f_ref, generator)
+            _check_norm_deviation(dev, self.evaluation)
+            self._reference = out[0].cpu().numpy().astype(np.bool_)
+        return self._reference
+
+    def _sample_batches(self, shots: int, batch_size: int | None = None) -> np.ndarray:
+        self._validate_shot_args(shots, batch_size)
+        num_outputs = self._program.num_outputs
+        if shots == 0:
+            return np.empty((0, num_outputs), dtype=np.bool_)
+        self._require_components()
+        batch_size = self._resolve_batch_size(shots, batch_size)
+        num_batches = ceil(shots / batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
         max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
@@ -285,6 +360,85 @@ class _CompiledSamplerBase:
         mark("unpack")
         return dev
 
+    def _sample_batches_with_postselection(
+        self,
+        shots: int,
+        batch_size: int | None,
+        *,
+        postselection_mask: np.ndarray,
+        fold_detector_reference: bool = False,
+        compute_reference: bool = False,
+    ):
+        """Postselected sampling: (samples, reference or None, dropped).
+
+        Counterpart of tsim_tpu's ``_sample_batches_with_postselection``,
+        kept on the device: each chunk of ``batch_size`` shots draws its
+        noise, its direct bits and the prefilter over the masked direct
+        detectors there (after the detector reference fold, when asked);
+        boolean indexing compacts the survivors, which are evaluated in
+        batches of ``batch_size`` (the last one shorter). Discarded shots
+        never reach an evaluator: their rows keep the direct detector
+        columns and are false elsewhere. The final reference folds of
+        survivors and discarded rows follow tsim_tpu's.
+        """
+        self._validate_shot_args(shots, batch_size)
+        n_out, nd = self._program.num_outputs, self._num_detectors
+        if shots == 0:
+            ref0 = np.zeros(n_out, dtype=np.bool_) if compute_reference else None
+            return np.empty((0, n_out), dtype=np.bool_), ref0, np.empty(0, dtype=np.bool_)
+        self._require_components()
+        batch_size = self._resolve_batch_size(shots, batch_size)
+        reference = self._reference_sample() if compute_reference else None
+
+        post = torch.as_tensor(postselection_mask & self._direct_detector_mask, device=self.device)
+        masked_ref = None
+        if fold_detector_reference and reference is not None:
+            masked_ref = torch.as_tensor(reference[:nd], device=self.device) & post
+
+        result = np.zeros((shots, n_out), dtype=np.bool_)
+        dropped = np.zeros(shots, dtype=np.bool_)
+        max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        pool_f: list[torch.Tensor] = []
+        pool_rows: list[torch.Tensor] = []
+        pooled = 0
+
+        def evaluate(f_batch, rows):
+            nonlocal max_dev
+            out, dev = sample_program_with_deviation(self._tables, f_batch, self._generator)
+            max_dev = torch.maximum(max_dev, dev)
+            result[rows.cpu().numpy()] = _to_host(out)
+
+        taken = 0
+        while taken < shots:
+            want = min(batch_size, shots - taken)
+            f_params = self._device_channels.sample(self._generator, want)
+            direct = self._tables.direct_outputs(f_params)[:, :nd]
+            sel = direct.bool() & post
+            if masked_ref is not None:
+                sel ^= masked_ref
+            keep = ~sel.any(dim=1)
+            result[taken : taken + want, :nd] = _to_host(direct)
+            keep_host = keep.cpu().numpy()
+            dropped[taken : taken + want] = ~keep_host
+            pool_f.append(f_params[keep])
+            pool_rows.append(torch.nonzero(keep).squeeze(1) + taken)
+            pooled += int(keep_host.sum())
+            taken += want
+            while pooled >= batch_size or (taken == shots and pooled):
+                f_all, rows_all = torch.cat(pool_f), torch.cat(pool_rows)
+                n = min(batch_size, pooled)
+                evaluate(f_all[:n], rows_all[:n])
+                pool_f, pool_rows = [f_all[n:]], [rows_all[n:]]
+                pooled -= n
+
+        self.last_norm_deviation = float(max_dev[0])
+        _check_norm_deviation(max_dev, self.evaluation)
+        if fold_detector_reference and reference is not None:
+            det_ref = reference[:nd]
+            result[~dropped, :nd] ^= det_ref
+            result[dropped, :nd] ^= det_ref & self._direct_detector_mask
+        return result, reference, dropped
+
 
 class CompiledMeasurementSampler(_CompiledSamplerBase):
     """Samples measurement outcomes of a measurement program."""
@@ -301,6 +455,22 @@ def _maybe_bit_pack(array: np.ndarray, *, bit_packed: bool) -> np.ndarray:
 
 class CompiledDetectorSampler(_CompiledSamplerBase):
     """Samples detector and observable outcomes of a detector program."""
+
+    def _coerce_postselection_mask(self, mask) -> np.ndarray | None:
+        """Validate a postselection mask; None where the prefilter has nothing
+        to act on (no direct detector selected, or no component), since those
+        cases sample as the plain batched path does."""
+        if mask is None:
+            return None
+        mask = np.asarray(mask, dtype=np.bool_)
+        if mask.shape != (self._num_detectors,):
+            raise ValueError(
+                f"postselection_mask must have shape ({self._num_detectors},), got {mask.shape}"
+            )
+        prefilterable = bool(self._program.components) and bool(
+            (mask & self._direct_detector_mask).any()
+        )
+        return mask if prefilterable else None
 
     def sample(
         self,
@@ -320,19 +490,33 @@ class CompiledDetectorSampler(_CompiledSamplerBase):
                 "separate_observables=True is mutually exclusive with the "
                 "prepend/append observable layouts"
             )
-        if postselection_mask is not None:
-            raise NotImplementedError(
-                "postselection_mask: the postselection prefilter "
-                "(tsim_tpu sampler._sample_batches_with_postselection) is not ported yet"
+        compute_reference = use_detector_reference_sample or use_observable_reference_sample
+        prefilter_mask = self._coerce_postselection_mask(postselection_mask)
+        nd = self._num_detectors
+        if prefilter_mask is None:
+            # Every shot is evaluated; the reference folds apply to all of them.
+            samples = self._sample_batches(shots, batch_size)
+            if compute_reference and shots:
+                reference = self._reference_sample()
+                if use_detector_reference_sample:
+                    samples[:, :nd] ^= reference[:nd]
+                if use_observable_reference_sample:
+                    samples[:, nd:] ^= reference[nd:]
+        else:
+            # The detector fold happens inside (it decides which shots the
+            # prefilter discards); discarded shots are never evaluated, so the
+            # observable fold touches the survivors only.
+            samples, reference, dropped = self._sample_batches_with_postselection(
+                shots,
+                batch_size,
+                postselection_mask=prefilter_mask,
+                fold_detector_reference=use_detector_reference_sample,
+                compute_reference=compute_reference,
             )
-        if use_detector_reference_sample or use_observable_reference_sample:
-            raise NotImplementedError(
-                "reference samples (tsim_tpu sampler._compute_reference_sample) "
-                "are not ported yet"
-            )
-        samples = self._sample_batches(shots, batch_size)
-        det = samples[:, : self._num_detectors]
-        obs = samples[:, self._num_detectors :]
+            if use_observable_reference_sample:
+                samples[~dropped, nd:] ^= reference[nd:]
+        det = samples[:, :nd]
+        obs = samples[:, nd:]
         if prepend_observables and append_observables:
             return _maybe_bit_pack(np.concatenate([obs, det, obs], axis=1), bit_packed=bit_packed)
         if append_observables:
