@@ -33,10 +33,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    shots/s), the exported 4096-shot replay of tsim_tpu's exact sampling
    reproduced bit for bit, and one 2^20-shot batch of d3 distillation in
    exact mode (norm deviation, z-scores as in phase 4);
-8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``)
-   and, where a row fits 4 words, the packed ones (K1, K2) vs the plain
-   version on every rung of d3, 1-check and 2-check cultivation and on two
-   seeded rungs over 160 parameters, at 2^20 + 1 rows, within rtol 1e-5 of
+8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``),
+   the bit-sliced wide one (K1, any row) and, where a row fits 4 words, the
+   packed small one (K2) vs the plain version on every rung of d3, 1-check
+   and 2-check cultivation and on two seeded rungs over 160 parameters, at
+   2^20 + 1 rows, and whether K1 equals K3a bit for bit; within rtol 1e-5 of
    the row's mass (the sum over graphs of |product|: cultivation's graph
    sums cancel to near zero on most rows, where only the mass sets the
    scale of f32 rounding); timed in turns with the plain version: K1 and K3a
@@ -56,13 +57,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
     noise drew the other reference value);
     shots/s and survivors/s; launches of K1, K2 and K4 (whose cached result
     is forgotten just before, so the path runs it as a new process would);
-11. the same path with ``TSIM_TPU_SAMPLE_TPACK=0``: launches of K3a and K3b
+11. the same path compiled with ``per_term=True``: launches of K3a and K3b
     and the same checks;
 12. 1-check cultivation in f32 mode, 4 * 2**20 shots, z-scores against the
     means tsim_tpu sampled;
 13. the stage ablation of the wide kernel (K8, ``dev/torch_kernel_ablate.py``)
-    on cultivation's 307-graph rung at 2^20 rows: its oracles and the time
-    of every variant.
+    on 2-check cultivation's 307-graph rung and on 1-check cultivation's
+    64-graph rung at 2^20 rows: its oracles and the time of every variant
+    (``par1`` and ``par-all`` time the bit-sliced parity stage alone);
+14. the exact kernels past 128 parameters: seeded rungs of all four families
+    over 130 and 200 parameters with 5 and 40 graphs, exact and approximate,
+    at 2^16 + 1 rows, kernel vs the plain exact evaluator (exact rungs
+    bit-equal, approximate ones within rtol 1e-5 of the batch's largest
+    magnitude: their random graph sums cancel on some rows).
 
 Each path of phases 4, 6, 7 and 10 to 13 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
@@ -76,7 +83,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -118,6 +124,8 @@ SELF_TEST_REPLACES = "tsim_tpu/compile/pallas_sample.py:405"  # _tpack_probe (K4
 ABLATE_REPLACES = "dev/kernel_ablate.py:132"  # run_variant -> _body_ablate (K8)
 CULTIVATION_SHOTS = 4 * MAIN_BATCH
 WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' four words
+LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
+LONG_ROW_COUNT = (1 << 16) + 1
 DEVICE = "cuda"
 SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock, longer than the queued calls take to enqueue
 
@@ -458,8 +466,8 @@ def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
 
 
 def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
-    """Phase 8: per-term (and packed, where a row fits) f32 kernels vs the
-    plain version on every rung at KERNEL_ROWS rows, and the timings of
+    """Phase 8: per-term, bit-sliced wide and (where a row fits) packed small
+    f32 kernels vs the plain version on every rung at KERNEL_ROWS rows, and the timings of
     K1/K3a on cultivation's 307-graph rung and K2/K3b on d3's 6-graph rung.
 
     Returns ({configuration: max abs err}, {configuration: (kernel ms,
@@ -483,7 +491,7 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
         want, mass = sample_product_sum_reference(t, x, with_mass=True)
         scale, norm = mass[:, None], want.norm(dim=1, keepdim=True)
         layout = kernel.layout(t.num_graphs)
-        configs = [f"per_term_{layout}"] + ([layout] if t.words <= MAX_WORDS else [])
+        configs = [f"per_term_{layout}"] + ([layout] if layout == "wide" or t.words <= MAX_WORDS else [])
         outs = {}
         for config in configs:
             got = outs[config] = kernel.launch(t, x, config)
@@ -502,8 +510,11 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
                 fail(f"{label} G={t.num_graphs}: {config} disagrees with the plain version beyond rtol {RTOL}")
             del got, err
         if len(outs) == 2:
-            print(f"{label} G={t.num_graphs}: {configs[0]} equals {configs[1]} bit for bit: "
-                  f"{torch.equal(*outs.values())}", flush=True)
+            same = torch.equal(*outs.values())
+            print(f"{label} G={t.num_graphs}: {configs[0]} equals {configs[1]} bit for bit: {same}", flush=True)
+            if layout == "wide" and not same:
+                fail(f"{label} G={t.num_graphs}: wide and per_term_wide add the same f32 values in "
+                     "the same order and must agree bit for bit")
         del outs
         pair = timed.get((label, t.num_graphs))
         if pair and pair[0] not in timing:
@@ -575,10 +586,12 @@ def reference_fold(cultivation) -> np.ndarray:
     return ~(out == out[:1]).all(axis=0)
 
 
-def postselected_path(cultivation, label: str, expected, random_outputs: np.ndarray) -> dict:
+def postselected_path(cultivation, label: str, expected, random_outputs: np.ndarray,
+                      per_term: bool = False) -> dict:
     """Phases 10 and 11: postselected f32 sampling of 2-check cultivation
     with both reference samples, checked against tsim_tpu's export.
-    ``random_outputs`` marks the outputs that are random without noise."""
+    ``random_outputs`` marks the outputs that are random without noise;
+    ``per_term`` compiles the sampler onto the per-term kernels."""
     from tsim_tpu_torch.compile import sample_eval
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
@@ -589,7 +602,7 @@ def postselected_path(cultivation, label: str, expected, random_outputs: np.ndar
         batch_size=MAIN_BATCH, postselection_mask=mask, use_detector_reference_sample=True,
         use_observable_reference_sample=True, separate_observables=True,
     )
-    sampler = cultivation.compile_detector_sampler(seed=0, device=DEVICE)
+    sampler = cultivation.compile_detector_sampler(seed=0, device=DEVICE, per_term=per_term)
     sampler.sample(MAIN_BATCH, **kw)  # warm-up
     torch.cuda.synchronize()
     kernel.reset_launch_counts()
@@ -659,31 +672,73 @@ def checks1_path(cultivation) -> dict:
     return launches
 
 
-def ablation_path(cultivation, dev) -> tuple[dict, tuple, float]:
-    """Phase 13: the K8 ablation on cultivation's 307-graph rung."""
+def ablation_path(circuit, label: str, dev) -> tuple[dict, tuple, float]:
+    """Phase 13: the K8 ablation on the rung ``circuit`` at MAIN_BATCH rows.
+    Returns (launches, (full ms, plain ms, bound ms, bound by, rung), max abs err)."""
     from dev.torch_kernel_ablate import ablate_rung
     from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
-    circuit = cultivation.load().program.components[0].compiled_scalar_graphs[-1]
     x = rows(circuit.n_params, MAIN_BATCH, seed=400, device=dev)
     kernel.reset_launch_counts()
     results = ablate_rung(circuit, x)
     launches = dict(kernel.launch_counts)
-    check_launched("ablation", launches, ["ablate"])
+    check_launched(f"ablation {label}", launches, ["ablate"])
     for r in results:
         err = "" if r["err"] is None else f", err {r['err']:.3e}"
-        print(f"ablation G={circuit.num_graphs}, B={MAIN_BATCH}: {r['name']:12s} {r['ms']:9.4f} ms "
+        print(f"ablation {label} G={circuit.num_graphs}, B={MAIN_BATCH}: {r['name']:12s} {r['ms']:9.4f} ms "
               f"[{r['oracle']}{err}] -> {'ok' if r['ok'] else 'FAIL'}", flush=True)
     if not all(r["ok"] for r in results):
-        fail("ablation: a variant failed its oracle")
+        fail(f"ablation {label}: a variant failed its oracle")
     t = SampleTables(circuit).to(dev)
     _, plain = timed_once(lambda: sample_product_sum_reference(t, x))
     full = next(r for r in results if r["name"] == "full")
     bound = f32_bound(circuit, 4 * t.flat.numel(), MAIN_BATCH)
     max_err = max(r["abs_err"] or 0.0 for r in results)
-    return launches, (full["ms"], plain, *bound, f"cultivation G={circuit.num_graphs}, full"), max_err
+    return launches, (full["ms"], plain, *bound, f"{label} G={circuit.num_graphs}, full"), max_err
+
+
+def long_row_phase(dev) -> None:
+    """Phase 14: the exact kernels on rungs over 128 parameters, against the
+    plain exact evaluator on the card: wide (40 graphs) and small (5), exact
+    finisher bit for bit, approximate finisher within RTOL of the batch's
+    largest magnitude."""
+    import dataclasses
+
+    from tsim_tpu_torch.compile.evaluate import evaluate_abs
+    from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
+    from tsim_tpu_torch.compile.exact_tables import ExactTables
+    from tsim_tpu_torch.compile.sample_eval import synthetic_rung
+    from tsim_tpu_torch.kernels import exact_eval as kernel
+
+    kernel.reset_launch_counts()
+    for i, (n_params, graphs) in enumerate(LONG_ROW_RUNGS):
+        exact = synthetic_rung(500 + i, graphs, n_params, (6, 4, 4, 2))
+        factors = np.random.default_rng(600 + i).normal(size=(graphs, 2)).astype(np.float32)
+        approx = dataclasses.replace(exact, prefactor=dataclasses.replace(
+            exact.prefactor, approximate_floatfactors=factors, has_approximate_floatfactors=True))
+        for rung in (exact, approx):
+            t = ExactTables(rung).to(dev)
+            name = f"{'approx' if t.approximate else 'exact'}_{kernel.configuration(t.num_graphs)}"
+            x = rows(n_params, LONG_ROW_COUNT, seed=700 + i, device=dev)
+            got = evaluate_abs_exact(t, x)
+            want = evaluate_abs(t.circuit(), x)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if t.approximate:
+                # These random graph sums cancel on some rows, where only the
+                # terms' size, not the row's magnitude, scales the f32 rounding.
+                ok, bound = bool((err <= ATOL + RTOL * want.max()).all()), f"rtol {RTOL} of the largest row"
+            else:
+                ok, bound = torch.equal(got, want), "equal"
+            ok = ok and bool(torch.isfinite(got).all())
+            print(f"long rows: G={graphs} P={n_params} W={t.words} {name}, B={LONG_ROW_COUNT}: "
+                  f"max abs err {float(err.max()):.3e}, largest row {float(want.max()):.3e} ({bound}) "
+                  f"-> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"long rows: {name} disagrees with the plain exact evaluator at P={n_params}, G={graphs}")
+    check_launched("long rows", dict(kernel.launch_counts), list(kernel.launch_counts))
 
 
 def main() -> None:
@@ -833,18 +888,10 @@ def main() -> None:
     if packed["per_term_wide"] or packed["per_term_small"]:
         fail("postselected cultivation: the packed path launched per-term kernels")
     f32_paths.append(packed)
-    switch = os.environ.get("TSIM_TPU_SAMPLE_TPACK")
-    os.environ["TSIM_TPU_SAMPLE_TPACK"] = "0"
-    try:
-        per_term = postselected_path(
-            cultivation, "postselected cultivation, per-term", ["per_term_wide", "per_term_small"],
-            random_outputs,
-        )
-    finally:
-        if switch is None:
-            del os.environ["TSIM_TPU_SAMPLE_TPACK"]
-        else:
-            os.environ["TSIM_TPU_SAMPLE_TPACK"] = switch
+    per_term = postselected_path(
+        cultivation, "postselected cultivation, per-term", ["per_term_wide", "per_term_small"],
+        random_outputs, per_term=True,
+    )
     if per_term["wide"] or per_term["small"]:
         fail("postselected cultivation, per-term: packed kernels were launched")
     f32_paths.append(per_term)
@@ -854,7 +901,16 @@ def main() -> None:
     f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
 
     # ---- phase 13: the stage ablation ------------------------------------
-    ablate_launches, ablate_timing, ablate_err = ablation_path(cultivation, dev)
+    ablate_launches, ablate_timing, ablate_err = ablation_path(
+        cultivation.load().program.components[0].compiled_scalar_graphs[-1], "cultivation", dev)
+    more_launches, _, more_err = ablation_path(
+        cultivation_checks1.load().program.components[0].compiled_scalar_graphs[-1],
+        "cultivation 1-check", dev)
+    ablate_launches = {k: ablate_launches[k] + more_launches[k] for k in ablate_launches}
+    ablate_err = max(ablate_err, more_err)
+
+    # ---- phase 14: the exact kernels past 128 parameters ------------------
+    long_row_phase(dev)
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

@@ -1,7 +1,9 @@
 """Where the time of d3 distillation sampling goes on a CUDA card (tsim_tpu_torch),
-or, with ``--postselected``, that of postselected 2-check cultivation.
+or that of 2-check cultivation (``--program cultivation``, in exact mode with
+``--evaluation exact``, postselected in f32 mode with ``--postselected``).
 
     python3 dev/torch_profile_d3.py [--batch 1048576] [--batches 4] [--out build/profile_d3]
+                                    [--program d3|cultivation] [--evaluation f32|exact]
                                     [--postselected]
 
 1. Stage split of the sampler's own batch step (``_sample_batch``) on the
@@ -77,6 +79,8 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=1 << 20)
     parser.add_argument("--batches", type=int, default=4)
     parser.add_argument("--out", default="build/profile_d3")
+    parser.add_argument("--program", choices=("d3", "cultivation"), default="d3")
+    parser.add_argument("--evaluation", choices=("f32", "exact"), default="f32")
     parser.add_argument("--postselected", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -90,15 +94,18 @@ def main() -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     B, n = args.batch, args.batches
 
+    if args.postselected or args.program == "cultivation":
+        circuit = cultivation_d3(p=0.001, checks=2)
+    else:
+        circuit = distillation_d3(p=0.05)
+    sampler = circuit.compile_detector_sampler(seed=0, device="cuda", evaluation=args.evaluation)
+    kw = {}
     if args.postselected:
-        sampler = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(seed=0, device="cuda")
         kw = dict(
             postselection_mask=np.ones(sampler._num_detectors, bool), separate_observables=True,
             use_detector_reference_sample=True, use_observable_reference_sample=True,
         )
-    else:
-        sampler = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cuda")
-        kw = {}
+    print(f"{'postselected ' if args.postselected else ''}{circuit.path.stem}, evaluation {args.evaluation}")
     sampler.sample(B, batch_size=B, **kw)  # warm-up: kernel build and first launches
     torch.cuda.synchronize()
 

@@ -34,6 +34,7 @@ from tests.test_torch_sample_eval import _CIRCUITS, _SYNTHETIC, _circuit_rungs, 
 from tsim_tpu_torch import program_io
 from tsim_tpu_torch.compile import evaluate, exact_eval, terms
 from tsim_tpu_torch.compile.exact_tables import ExactTables
+from tsim_tpu_torch.compile.sample_eval import synthetic_rung
 from tsim_tpu_torch.core.exact_scalar import ExactScalarArray, exact_magnitude, exp2_int
 from tsim_tpu_torch.kernels import exact_eval as kernel
 from tsim_tpu_torch.models import cultivation_d3, distillation_d3
@@ -339,6 +340,28 @@ def test_exact_tables_round_trip(committed_rungs):
             np.testing.assert_array_equal(
                 evaluate.evaluate_abs(back, x).numpy(), evaluate.evaluate_abs(csg, x).numpy()
             )
+
+
+@pytest.mark.parametrize("n_graphs", [5, 40])
+@pytest.mark.parametrize("n_params", [130, 200])
+def test_exact_tables_round_trip_past_four_words(n_params, n_graphs):
+    """Rows over 128 parameters: the tables build, hold the packed words and
+    the bit lists of the layout, and the rung read back evaluates bit for bit
+    as the original (tests/test_torch_bitsliced.py holds such rungs against
+    tsim_tpu's evaluate_abs)."""
+    csg = synthetic_rung(n_params + n_graphs, n_graphs, n_params, (3, 3, 2, 2))
+    tables = ExactTables(csg)
+    assert tables.words == -(-n_params // 32) > 4
+    sizes = {name: int(np.prod(shape)) for name, shape, _ in tables.layout()}
+    assert tables.flat.numel() == sum(sizes.values())
+    assert sizes["bs_words"] == (tables.list_words + 4) * n_graphs and tables.list_words > 0
+    back = tables.circuit()
+    np.testing.assert_array_equal(back.node_phases.params.numpy(), csg.node_phases.params)
+    np.testing.assert_array_equal(back.pi_products.phi_params.numpy(), csg.pi_products.phi_params)
+    x = _t(_rows(n_params, 33, n_graphs))
+    want = evaluate.evaluate_abs(csg, x).numpy()
+    np.testing.assert_array_equal(evaluate.evaluate_abs(back, x).numpy(), want)
+    np.testing.assert_array_equal(exact_eval.evaluate_abs_exact(tables, x).numpy(), want)
 
 
 def test_live_lengths_cover_live_terms(committed_rungs):

@@ -10,6 +10,7 @@ This file imports no JAX, so the card's tests run on a machine without it:
 Tests marked ``cuda`` skip where no CUDA device is present.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -114,8 +115,8 @@ def _f32_rungs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 7, 4097])
 def test_per_term_kernels_match_plain_version(cuda, batch):
-    """K3a/K3b on every rung (and K1/K2 where a row fits four words) against
-    the plain version, within rtol 1e-5 of the row's mass (sum over graphs
+    """K3a/K3b on every rung, the bit-sliced K1 on every wide rung and K2
+    where a row fits four words, against the plain version, within rtol 1e-5 of the row's mass (sum over graphs
     of |product|): cultivation's graph sums cancel to near zero on most
     rows, so f32 rounding is only small against the mass."""
     kernel.reset_launch_counts()
@@ -125,11 +126,25 @@ def test_per_term_kernels_match_plain_version(cuda, batch):
         want, mass = sample_product_sum_reference(tables, x, with_mass=True)
         scale = mass[:, None]
         layout = kernel.layout(tables.num_graphs)
-        for config in [f"per_term_{layout}"] + ([layout] if tables.words <= 4 else []):
+        for config in [f"per_term_{layout}"] + ([layout] if layout == "wide" or tables.words <= 4 else []):
             got = kernel.launch(tables, x, config)
             torch.cuda.synchronize()
             assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (name, config, batch)
     assert min(kernel.launch_counts[c] for c in kernel.CONFIGURATIONS) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 4097])
+def test_wide_kernel_equals_per_term_wide(cuda, batch):
+    """The bit-sliced K1 and the popcount K3a apply the same f32 factors in
+    the same order and sum graphs in the same order: equal bit for bit on
+    every wide rung, the seeded one over 160 parameters included."""
+    for i, (name, csg) in enumerate(_f32_rungs()):
+        if kernel.layout(csg.num_graphs) != "wide":
+            continue
+        tables = SampleTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        assert torch.equal(kernel.launch(tables, x, "wide"), kernel.launch(tables, x, "per_term_wide")), name
 
 
 @pytest.mark.cuda
@@ -215,6 +230,34 @@ def test_exact_kernels_match_plain_version(exact_rungs, cuda, batch):
             assert ((got - want).abs() <= ATOL + RTOL * want).all(), (name, batch)
         else:
             assert torch.equal(got, want), (name, batch)
+    assert min(exact_kernel.launch_counts.values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33, 4097])
+@pytest.mark.parametrize("n_params", [130, 200])
+def test_exact_kernels_take_rows_over_128_parameters(cuda, n_params, batch):
+    """Seeded rungs of all four families past four packed words: the wide
+    kernels (40 graphs) through the bit-sliced front end, the small ones (5
+    graphs) with the row in shared memory; exact bit for bit, approximate
+    within rtol 1e-5 of the batch's largest magnitude."""
+    exact_kernel.reset_launch_counts()
+    for graphs in (5, 40):
+        exact = synthetic_rung(n_params + graphs, graphs, n_params, (6, 4, 4, 2))
+        factors = np.random.default_rng(graphs).normal(size=(graphs, 2)).astype(np.float32)
+        approx = dataclasses.replace(exact, prefactor=dataclasses.replace(
+            exact.prefactor, approximate_floatfactors=factors, has_approximate_floatfactors=True))
+        for rung in (exact, approx):
+            tables = ExactTables(rung).to(cuda)
+            assert tables.words > 4
+            x = _rows(n_params, batch, seed=graphs, device=cuda)
+            got = evaluate_abs_exact(tables, x)
+            want = evaluate_abs(tables.circuit(), x)
+            torch.cuda.synchronize()
+            if tables.approximate:  # random graph sums cancel on some rows: scale by the largest
+                assert ((got - want).abs() <= ATOL + RTOL * want.max()).all(), (graphs, batch)
+            else:
+                assert torch.equal(got, want), (graphs, batch)
     assert min(exact_kernel.launch_counts.values()) > 0
 
 

@@ -102,16 +102,16 @@ _CASES = (
 @pytest.mark.parametrize("case", _CASES)
 def test_plain_version_matches_tsim_tpu_per_term_kernels(monkeypatch, rungs, case):
     csg = _SYNTHETIC[case.split(":")[1]]() if case.startswith("synthetic:") else rungs[case]
-    monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "0")
+    monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "0")  # tsim_tpu's side; the port takes an argument
     assert not pallas_sample._use_tpack()
     vals = np.random.default_rng(len(case)).integers(0, 2, size=(64, csg.n_params)).astype(np.uint8)
     if case in EAGER_CASES:
         want = _per_term_wide_eager(csg, vals)
     else:
         want = np.asarray(pallas_sample.evaluate_abs_sample_f32(csg, vals))
-    tables = SampleTables(rung_from_reference(csg))
-    assert kernel.configuration(tables.num_graphs, tables.words) == "per_term_" + kernel.layout(
-        tables.num_graphs
+    tables = SampleTables(rung_from_reference(csg), per_term=True)
+    assert kernel.configuration(tables.num_graphs, tables.words, tables.per_term) == (
+        "per_term_" + kernel.layout(tables.num_graphs)
     )
     assert kernel.layout(tables.num_graphs) == (
         "small" if csg.num_graphs < pallas_sample._small_g_cutoff() else "wide"
@@ -131,15 +131,15 @@ def test_cultivation_checks1_rungs(rungs):
 def test_wide_rows_take_the_per_term_configuration(rungs):
     """Past MAX_WORDS packed words the f32 tables build (no cap) and take the
     per-term configuration even with the packed kernels on; exact tables
-    keep their cap."""
+    have no cap either."""
     port = rung_from_reference(rungs["p160"])
     tables = SampleTables(port)
     assert tables.words == 5 > MAX_WORDS and tables.num_graphs == 30
     assert kernel.use_packed()
     assert kernel.configuration(tables.num_graphs, tables.words) == "per_term_wide"
     assert kernel.configuration(8, 5) == "per_term_small"
-    with pytest.raises(NotImplementedError, match="packed words"):
-        ExactTables(port)
+    exact = ExactTables(port)
+    assert exact.words == 5 and exact_kernel.configuration(exact.num_graphs) == "wide"
 
 
 def test_configuration_follows_the_switch(monkeypatch):
@@ -151,14 +151,19 @@ def test_configuration_follows_the_switch(monkeypatch):
     monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "0")
     assert [kernel.configuration(g, w) for g, w in table] == [f"per_term_{c}" for c in packed]
     assert [exact_kernel.configuration(g) for g, _ in table] == packed
+    assert [kernel.configuration(g, w, per_term=False) for g, w in table] == packed  # the argument wins
     monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "1")
     assert [kernel.configuration(g, w) for g, w in table] == packed
+    assert [kernel.configuration(g, w, per_term=True) for g, w in table] == [f"per_term_{c}" for c in packed]
+    assert kernel.configuration(8, 5, per_term=False) == "per_term_small"  # long rows stay per-term
 
 
 def test_launch_refuses_long_rows_on_packed_kernels():
     tables = SampleTables(sample_eval.synthetic_rung(0, 30, WIDE_PARAMS))
     x = torch.zeros((4, WIDE_PARAMS), dtype=torch.uint8)
     with pytest.raises(ValueError, match="packed kernels"):
+        kernel.launch(tables, x, "small")
+    with pytest.raises(ValueError, match="CUDA"):  # the bit-sliced wide kernel takes any row
         kernel.launch(tables, x, "wide")
     with pytest.raises(ValueError, match="configuration"):
         kernel.launch(tables, x, "per_term")

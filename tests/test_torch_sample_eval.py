@@ -224,16 +224,20 @@ def test_table_buffer_follows_layout(d3_rungs):
 
 
 def test_too_many_parameters_raise():
-    """Past 128 parameters (four packed words) the exact tables still raise;
+    """Past 128 parameters (four packed words) nothing raises any more: the
+    exact tables build and evaluate as tsim_tpu's exact evaluator does, and
     the f32 tables build and evaluate (on the card through the per-term
     kernels, see test_torch_per_term.py)."""
     params = [f"f{i}" for i in range(129)]
     csg = _scalar_csg(lambda s: s.add_node(0.25, ["f128"]), params=params)
     port = rung_from_reference(csg)
-    with pytest.raises(NotImplementedError, match="packed words"):
-        ExactTables(port)
+    vals = _rows(129, 9, 0)
+    want = np.asarray(evaluate_abs(csg, vals))
+    exact = ExactTables(port)
+    assert exact.words == 5
+    got = sample_eval.evaluate_abs_sample(exact, torch.from_numpy(vals)).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-6, atol=0)
     tables = SampleTables(port)
     assert tables.words == 5 and kernel.configuration(tables.num_graphs, tables.words) == "per_term_small"
-    vals = _rows(129, 9, 0)
     got = sample_eval.evaluate_abs_sample(tables, torch.from_numpy(vals)).numpy()
-    np.testing.assert_allclose(got, np.asarray(evaluate_abs(csg, vals)), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)

@@ -8,7 +8,9 @@ factors. The CUDA kernels (``kernels/csrc/exact_eval.cu``) and the plain
 reader (:meth:`ExactTables.circuit`, fed to ``compile/evaluate.py``) walk
 the same segments, in the order of :func:`exact_table_layout`. Parity
 parameters are packed into ``W = ceil(P / 32)`` words per (term, graph)
-with ``sample_tables.pack_words``.
+with ``sample_tables.pack_words``, any number of them (the plain reader and
+the small kernels read these), and listed by set parameter for the
+bit-sliced wide kernels (``compile/bit_lists.py``).
 
 The TPU sorts graphs into buckets by live term count, because it pads
 each tile to its largest graph. Here each graph keeps its own counts:
@@ -32,13 +34,15 @@ from ..program_io import (
     PiProducts,
     ScalarPrefactor,
 )
-from .sample_tables import MAX_WORDS, num_words, pack_words, unpack_words
+from .bit_lists import AHEAD, bit_list_layout, build_bit_lists, flatten_segment, view_segment
+from .sample_tables import num_words, pack_words, unpack_words
 
 
-def exact_table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int) -> list:
+def exact_table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_words: int = 0) -> list:
     """Segments of the flat buffer: ``(name, shape, kind)`` in storage order.
 
-    ``kind`` is ``"i32"`` or ``"words"``. The CUDA kernel's
+    ``kind`` is ``"i32"`` or ``"words"``; the bit lists, a stream of
+    ``list_words`` words a graph, come last. The CUDA kernel's
     ``make_tables`` walks the same order; the two must change together.
     """
     return [
@@ -61,6 +65,7 @@ def exact_table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int) -> li
         ("pf_phase", (g,), "i32"),
         ("pf_ff", (4, g), "i32"),
         ("pf_pow", (g,), "i32"),
+        *bit_list_layout(t1, t2, t3, t4, g, list_words),
     ]
 
 
@@ -110,6 +115,7 @@ def build_exact_tables(circuit) -> dict:
         pf_phase=i32(pf.phase_indices) & 7,
         pf_ff=i32(pf.floatfactor).T,
         pf_pow=i32(pf.power2),
+        **build_bit_lists(circuit),
     )
 
 
@@ -119,8 +125,9 @@ class ExactTables(nn.Module):
     Buffers: ``flat`` (int32, the segments of :func:`exact_table_layout`)
     and ``approx`` ((2, G) float32 approximate factors, re then im).
     Plain attributes: ``num_graphs``, ``n_params``, ``words``, the
-    per-family term maxima ``dims = (T1, T2, T3, T4)`` and
-    ``approximate`` (the rung has approximate floatfactors).
+    per-family term maxima ``dims = (T1, T2, T3, T4)``, ``list_words``
+    (words a graph of the bit lists' stream) and ``approximate`` (the rung has
+    approximate floatfactors).
     """
 
     def __init__(self, circuit):
@@ -135,32 +142,27 @@ class ExactTables(nn.Module):
             np.shape(circuit.pi_products.psi_const)[0],
             np.shape(circuit.phase_pairs.alpha)[0],
         )
-        if self.words > MAX_WORDS:
-            raise NotImplementedError(
-                f"{self.n_params} parameters need {self.words} packed words; the "
-                f"exact kernels take at most {MAX_WORDS} ({32 * MAX_WORDS} parameters)"
-            )
         tables = build_exact_tables(circuit)
+        self.list_words = tables["bs_words"].shape[0] - AHEAD
         parts = []
-        for name, shape, _kind in self.layout():
+        for name, shape, kind in self.layout():
             a = tables[name]
             if a.shape != shape:
                 raise ValueError(f"table {name}: shape {a.shape}, expected {shape}")
-            parts.append(np.ascontiguousarray(a, np.int32).ravel())
-        flat = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        self.register_buffer("flat", torch.from_numpy(flat.copy()))
+            parts.append(flatten_segment(a, kind))
+        self.register_buffer("flat", torch.from_numpy(np.concatenate(parts)))
         approx = np.asarray(circuit.prefactor.approximate_floatfactors, np.float32).reshape(-1, 2)
         self.register_buffer("approx", torch.from_numpy(np.ascontiguousarray(approx.T)))
 
     def layout(self) -> list:
-        return exact_table_layout(*self.dims, self.num_graphs, self.words)
+        return exact_table_layout(*self.dims, self.num_graphs, self.words, self.list_words)
 
     def views(self) -> dict:
         """Named int32 tensor views into ``flat``."""
         out, off = {}, 0
-        for name, shape, _kind in self.layout():
+        for name, shape, kind in self.layout():
             n = int(np.prod(shape))
-            out[name] = self.flat[off : off + n].reshape(shape)
+            out[name] = view_segment(self.flat[off : off + n], shape, kind)
             off += n
         return out
 

@@ -56,12 +56,15 @@ def norm_deviation_tolerance(evaluation: str = "f32") -> float:
     return 3e-3 if check_evaluation(evaluation) == "f32" else 1e-5
 
 
-def rung_tables(circuit, evaluation: str = "f32") -> SampleTables | ExactTables:
+def rung_tables(
+    circuit, evaluation: str = "f32", per_term: bool | None = None
+) -> SampleTables | ExactTables:
     """The evaluator tables of one rung: exact in exact mode or when the rung
-    fails ``sample_eligible``, f32 otherwise."""
+    fails ``sample_eligible``, f32 otherwise (``per_term`` as in
+    :class:`SampleTables`)."""
     if check_evaluation(evaluation) == "exact" or not sample_eligible(circuit):
         return ExactTables(circuit)
-    return SampleTables(circuit)
+    return SampleTables(circuit, per_term)
 
 
 def _rot_staged(re, im, k):

@@ -9,7 +9,10 @@ The buffer is a run of segments in the order of :func:`table_layout`:
 
 * float segments (``cos``/``sin`` tables, prefactor) stored as their bits;
 * parity parameters packed into ``W = ceil(P / 32)`` ``uint32`` words per
-  (term, graph), bit ``p % 32`` of word ``p // 32`` being parameter ``p``.
+  (term, graph), bit ``p % 32`` of word ``p // 32`` being parameter ``p``
+  (read by the plain version and the popcount kernels);
+* the same masks as lists of their set parameters (``compile/bit_lists.py``),
+  read by the bit-sliced wide kernel.
 
 Dead (term, graph) slots get zeroed ``cos``/``sin`` tables, which makes the
 node-phase and phase-pair factors exactly 1, so the evaluator needs no
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-MAX_WORDS = 4  # packed words a shot row keeps in registers (128 parameters); longer rows go per-term
+from .bit_lists import AHEAD, bit_list_layout, build_bit_lists, flatten_segment, view_segment
+
+MAX_WORDS = 4  # packed words the "small" kernels keep in registers (128 parameters)
 
 _SQRT_HALF = np.float32(0.7071067811865476)
 
@@ -64,10 +69,11 @@ def num_words(n_params: int) -> int:
     return max(1, -(-n_params // 32))
 
 
-def table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int) -> list:
+def table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_words: int = 0) -> list:
     """Segments of the flat buffer: ``(name, shape, kind)`` in storage order.
 
-    ``kind`` is ``"f32"``, ``"i32"`` or ``"words"``. The CUDA kernel's
+    ``kind`` is ``"f32"``, ``"i32"`` or ``"words"``; the bit lists, a
+    stream of ``list_words`` words a graph, come last. The CUDA kernel's
     ``make_tables`` walks the same order; the two must change together.
     """
     return [
@@ -89,6 +95,7 @@ def table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int) -> list:
         ("qp_alpha_words", (t4, g, w), "words"),
         ("qp_beta_words", (t4, g, w), "words"),
         ("pre", (2, g), "f32"),
+        *bit_list_layout(t1, t2, t3, t4, g, list_words),
     ]
 
 
@@ -155,6 +162,7 @@ def build_tables(circuit, bias: int) -> dict:
         qp_alpha_words=words(qp.alpha_params),
         qp_beta_words=words(qp.beta_params),
         pre=np.stack([pre.real, pre.imag]).astype(np.float32),
+        **build_bit_lists(circuit),
     )
 
 
@@ -163,11 +171,15 @@ class SampleTables(nn.Module):
 
     Plain attributes carry the static shape: ``num_graphs``, ``n_params``,
     ``words``, the per-family term maxima ``dims = (T1, T2, T3, T4)``,
-    ``bias`` and ``eligible`` (:func:`sample_eligible`).
+    ``list_words`` (words a graph of the bit lists' stream), ``bias``,
+    ``eligible`` (:func:`sample_eligible`) and ``per_term``: True sends the
+    rung to the per-term kernels, False to the packed ones where its rows
+    fit, None leaves it to ``kernels.sample_eval.use_packed``.
     """
 
-    def __init__(self, circuit):
+    def __init__(self, circuit, per_term: bool | None = None):
         super().__init__()
+        self.per_term = per_term
         self.num_graphs = int(circuit.num_graphs)
         self.n_params = int(circuit.n_params)
         self.words = num_words(self.n_params)
@@ -180,27 +192,23 @@ class SampleTables(nn.Module):
             np.asarray(circuit.phase_pairs.alpha).shape[0],
         )
         tables = build_tables(circuit, self.bias)
+        self.list_words = tables["bs_words"].shape[0] - AHEAD
         parts = []
         for name, shape, kind in self.layout():
             a = tables[name]
             if a.shape != shape:
                 raise ValueError(f"table {name}: shape {a.shape}, expected {shape}")
-            dtype = np.float32 if kind == "f32" else np.int32
-            parts.append(np.ascontiguousarray(a, dtype).view(np.int32).ravel())
-        flat = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        self.register_buffer("flat", torch.from_numpy(flat.copy()))
+            parts.append(flatten_segment(a, kind))
+        self.register_buffer("flat", torch.from_numpy(np.concatenate(parts)))
 
     def layout(self) -> list:
-        return table_layout(*self.dims, self.num_graphs, self.words)
+        return table_layout(*self.dims, self.num_graphs, self.words, self.list_words)
 
     def views(self) -> dict:
         """Named tensor views into ``flat`` (float segments reinterpreted as f32)."""
         out, off = {}, 0
         for name, shape, kind in self.layout():
             n = int(np.prod(shape))
-            seg = self.flat[off : off + n]
-            if kind == "f32":
-                seg = seg.view(torch.float32)
-            out[name] = seg.reshape(shape)
+            out[name] = view_segment(self.flat[off : off + n], shape, kind)
             off += n
         return out

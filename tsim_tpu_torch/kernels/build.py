@@ -1,10 +1,11 @@
 """Builds the port's CUDA sources into a shared library and loads it with ctypes.
 
 ``nvcc`` compiles each of ``kernels/csrc/*.cu`` (plain C interface, no
-PyTorch headers) for ``sm_90a``, all sources at once in parallel
-processes, and links them into ``build/tsim_tpu_torch/<hash>/`` beside the
-package, at first use; the directory name is a hash of the sources and
-flags, so an edited source builds anew. Nothing is imported or compiled
+PyTorch headers; they share the headers ``csrc/*.cuh``) for ``sm_90a``, all
+sources at once in parallel processes, and links them into
+``build/tsim_tpu_torch/<hash>/`` beside the package, at first use; the
+directory name is a hash of the sources, headers and flags, so an edited
+file builds anew. Nothing is imported or compiled
 when this module is imported.
 """
 
@@ -31,6 +32,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,7 +49,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in (*sources(), *headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -8,36 +8,62 @@
 //   same function with one parity dot per term (_product_body_sample);
 // and the family/stage ablation of dev/kernel_ablate.py::_body_ablate (K8).
 // On the TPU every parity is a bf16 matrix-unit dot of the shot's 0/1
-// parameters against a term's parameter mask. Here a shot's parameters are
-// packed into 32-bit words and every parity is the popcount parity of
-// (x & w) over the words, so no parity matrix is formed at all.
+// parameters against a term's parameter mask. No parity matrix is formed
+// here. The configurations differ in how they form a parity:
+//   "wide" (K1, K8): bit-sliced over the 128 shots of a block (bitsliced.cuh):
+//   the block's rows become bit planes in shared memory and a graph's thread
+//   XORs the planes of each mask's set parameters, walking a host-built
+//   stream of their indices; any number of parameters;
+//   "small" (K2): the popcount parity of (x & w) over the row's W <= 4 packed
+//   words, held in registers, W a template parameter;
+//   "per_term_wide" / "per_term_small" (K3a / K3b): the same popcount with
+//   the packed words staged in shared memory and read in a loop over all W
+//   words for each term, so P has no word cap (only the block's shared
+//   memory bounds it: 1024 W bytes a block in the wide and 4 W bytes a shot
+//   in the small configuration).
+// In every configuration a thread applies the f32 factors of a graph to its
+// own shots (accumulate_graph) and adds the graphs' products one after the
+// other, so whatever belongs to the graph (its table entries) is the same for
+// the 32 lanes of a warp, which L1 broadcasts, and no sum over graphs crosses
+// lanes. The small configurations give each thread one shot and all graphs.
+// The wide ones give each thread one shot of every 32-shot group of the block
+// and each warp a share of the graphs (warp w the graphs w, w + warps, ... of
+// every chunk of blockDim graphs); the warps' sums are added in order through
+// shared memory, and no sum is carried across blocks. "wide" and
+// "per_term_wide" share that order, so they agree bit for bit. The ragged
+// edge of the batch is masked in all of them.
 //
-// The configurations differ in where a shot's packed words live:
-//   "wide" / "small" (K1 / K2): in W <= 4 registers, W a template parameter;
-//   "per_term_wide" / "per_term_small" (K3a / K3b): staged in shared memory
-//   and read in a loop over all W words for each term, so P has no word cap
-//   (only the block's shared memory bounds it: 32 W bytes a block in the
-//   wide and 4 W bytes a shot in the small configuration).
-// "wide" spreads graphs over the threads of a block and gives each thread
-// NS shots, so each table entry it loads is reused NS times; a block
-// reduction (warp shuffles, then shared memory) sums over graphs, and no sum
-// is carried across blocks. "small" gives each thread one shot and loops over
-// all graphs; every thread of a warp reads the same table entry, which L1
-// broadcasts. The ragged edge of the batch is masked in all of them.
+// "wide" runs in two stages per chunk of blockDim graphs. In the integer
+// stage a thread is a graph: it forms every parity of the graph for all 128
+// shots at once, keeps the half-pi total and the pi-product sign bit-sliced,
+// and leaves the result in its column of shared memory. In the per-shot
+// stage the block turns round as described above, and a thread reads bit
+// `lane` of the columns' words.
 //
-// What bounds it on an H100: the integer pipe. Per (shot, graph) pair it does
-// one popcount per parity row (T1 + T2 + 2 T3 + 2 T4 of them) and about ten
-// f32 operations per term; it reads P bytes and writes 8 bytes per shot, and
-// the tables of one rung are a few tens of KB that stay in L1/L2. Popcount
-// issues at a quarter of the f32 rate, so the popcounts and the table loads
-// are the limit.
+// What bounds "wide" on an H100: instruction throughput in the per-shot stage. The
+// stage ablation (dev/torch_kernel_ablate.py, 2^20 rows, 2-check
+// cultivation's 307-graph rung) puts the integer stage at a third of the
+// kernel and the per-shot stage at three fifths: per shot, graph and
+// node-phase term two selects and a complex product, per phase-pair term
+// about twenty f32 operations, plus the rotation, sign and prefactor per
+// graph. The integer stage is one 16-byte shared-memory load and four XORs
+// per listed parameter per 128 shots; the stream is padded to the same shape
+// for every graph of the rung, which costs about 2.7 listed parameters per
+// set mask bit on that rung. The kernel reads P bytes and writes 8 bytes per
+// shot, and the tables of one rung are a few hundred KB that stay in L1/L2.
+// The popcount configurations are bound by the popcount unit, which runs
+// at a quarter of the f32 rate.
 //
 // The wide kernel takes a family/stage mask M as a template parameter (bits
-// kP1..kT4: form family k's parities, apply family k's factors). K1 and K3a
-// run with every stage on; the ablation (tsim_sample_eval_ablate) launches
-// the same template with stages off, so its "full" variant is K1's own code.
-// A family whose parities are formed without its factors XORs them into a
+// kP1..kT4: form family k's parities, apply family k's factors). K1 runs
+// with every stage on; the ablation (tsim_sample_eval_ablate) launches the
+// same template with stages off, so its "full" variant is K1's own code. A
+// family whose parities are formed without its factors XORs them into a
 // word that is added to the real part, so the compiler cannot drop them.
+//
+// Registers (nvcc 12.8, -O3, sm_90a): "wide" 126 with four blocks an SM asked
+// for, no spill; the build keeps the compiler's report beside the library
+// (kernels/build.py).
 //
 // Build with -O3 and without --use_fast_math or -ftz, so that denormals
 // survive (the host still folds the common power of two out of the
@@ -46,17 +72,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitsliced.cuh"
+
 namespace {
+
+using bitsliced::kAllStages;
+using bitsliced::kP1;
+using bitsliced::kP2;
+using bitsliced::kP3;
+using bitsliced::kP4;
+using bitsliced::kT1;
+using bitsliced::kT2;
+using bitsliced::kT3;
+using bitsliced::kT4;
 
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr int kWideThreads = 128;  // upper bound of the wide block
-constexpr int kWideShots = 8;      // shots per wide block (NS)
+constexpr int kPerTermGroups = 8;  // 32-shot groups per per-term wide block
 constexpr int kSmallThreads = 128;
 constexpr int kDefaultSharedBytes = 48 * 1024;
-
-// Family/stage mask bits.
-constexpr unsigned kP1 = 1, kT1 = 2, kP2 = 4, kT2 = 8, kP3 = 16, kT3 = 32, kP4 = 64, kT4 = 128;
-constexpr unsigned kAllStages = 255;
 
 // Configuration codes of tsim_sample_eval (kernels/sample_eval.py::CONFIGURATIONS).
 enum Config { kSmall = 0, kWide = 1, kPerTermSmall = 2, kPerTermWide = 3 };
@@ -83,6 +117,7 @@ struct Tables {
   const uint32_t* b_w;
   const float* pre_re;
   const float* pre_im;
+  bitsliced::Lists lists;  // the set parameters of every mask, for "wide"
   int G, T1, T2, T3, T4, W;
 };
 
@@ -115,6 +150,7 @@ Tables make_tables(const int32_t* flat, int G, int T1, int T2, int T3, int T4, i
   t.b_w = reinterpret_cast<const uint32_t*>(take(g4 * W));
   t.pre_re = reinterpret_cast<const float*>(take(G));
   t.pre_im = reinterpret_cast<const float*>(take(G));
+  t.lists = bitsliced::make_lists(p, G, T1, T2, T3, T4);
   t.G = G;
   t.T1 = T1;
   t.T2 = T2;
@@ -132,7 +168,7 @@ __device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ row, i
   return word;
 }
 
-// NS shots' rows in W registers each (K1, K2).
+// NS shots' rows in W registers each (K2).
 template <int W, int NS>
 struct RegisterRows {
   uint32_t x[NS][W];
@@ -155,11 +191,11 @@ struct RegisterRows {
 };
 
 // NS shots' rows staged in shared memory, any number of words (K3a, K3b):
-// word i of shot k is xs[i * stride + k].
+// word i of shot k is xs[i * stride + k * step].
 template <int NS>
 struct SharedRows {
   const uint32_t* xs;
-  int W, stride;
+  int W, stride, step;
 
   __device__ __forceinline__ int words() const { return W; }
 
@@ -170,7 +206,7 @@ struct SharedRows {
     for (int i = 0; i < W; ++i) {
       const uint32_t w = __ldg(w_src + i);
 #pragma unroll
-      for (int k = 0; k < NS; ++k) acc[k] ^= xs[i * stride + k] & w;
+      for (int k = 0; k < NS; ++k) acc[k] ^= xs[i * stride + k * step] & w;
     }
 #pragma unroll
     for (int k = 0; k < NS; ++k) p[k] = __popc(acc[k]) & 1;
@@ -203,123 +239,126 @@ __device__ __forceinline__ void rot_staged(float& re, float& im, int k) {
   }
 }
 
-// Adds graph g's product, for each of NS shots, into (acc_re, acc_im), with
-// the stages of mask M.
-template <unsigned M, int NS, class Rows>
-__device__ __forceinline__ void accumulate_graph(const Tables& tb, int g, const Rows& rows,
+// Parities by popcount over packed rows (K2, K3a, K3b): graph g's, for the
+// NS shots of `rows`.
+template <int NS, class Rows>
+struct PopcountParities {
+  const Tables& tb;
+  const Rows& rows;
+  int g;
+
+  __device__ __forceinline__ const uint32_t* mask(const uint32_t* words, int t) const {
+    return words + (long long)(t * tb.G + g) * rows.words();
+  }
+  __device__ __forceinline__ void node(int t, int (&p)[NS]) const {
+    rows.parities(mask(tb.np_w, t), p);
+  }
+  // Sum over the half-pi rows of coeff * parity.
+  __device__ __forceinline__ void halfpi(int (&tot)[NS]) const {
+    int p[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) tot[k] = 0;
+    for (int t = 0; t < tb.T2; ++t) {
+      rows.parities(mask(tb.hp_w, t), p);
+      const int coeff = __ldg(tb.hp_c + t * tb.G + g);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) tot[k] += coeff * p[k];
+    }
+  }
+  // XOR over the pi-product terms of psi & phi.
+  __device__ __forceinline__ void sign(int (&sgn)[NS]) const {
+    int p[NS], q[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) sgn[k] = 0;
+    for (int t = 0; t < tb.T3; ++t) {
+      rows.parities(mask(tb.psi_w, t), p);
+      rows.parities(mask(tb.phi_w, t), q);
+      const int i = t * tb.G + g;
+      const int pc = __ldg(tb.psi_c + i) & 1, qc = __ldg(tb.phi_c + i) & 1;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) sgn[k] ^= (pc ^ p[k]) & (qc ^ q[k]);
+    }
+  }
+  __device__ __forceinline__ void pair(int t, int (&p)[NS], int (&q)[NS]) const {
+    rows.parities(mask(tb.a_w, t), p);
+    rows.parities(mask(tb.b_w, t), q);
+  }
+  __device__ __forceinline__ int bare(int) const { return 0; }
+};
+
+// Adds graph g's product, for each of NS shots, into acc_re[k] and
+// acc_im[k], with the factor stages of mask M; `par` gives the shots'
+// parities (PopcountParities, or bitsliced::Column after the integer
+// stage). Every configuration applies the f32 factors through this one
+// function, in the same order.
+template <unsigned M, int NS, class Parities>
+__device__ __forceinline__ void accumulate_graph(const Tables& tb, int g, const Parities& par,
                                                  float (&acc_re)[NS], float (&acc_im)[NS]) {
   constexpr bool kBare = ((M & kP1) && !(M & kT1)) || ((M & kP2) && !(M & kT2)) ||
                          ((M & kP3) && !(M & kT3)) || ((M & kP4) && !(M & kT4));
   const int G = tb.G;
-  const long long W = rows.words();
   float re[NS], im[NS];
-  int bare[NS], p[NS], q[NS];
+  int p[NS], q[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     re[k] = 1.0f;
     im[k] = 0.0f;
-    bare[k] = 0;
   }
 
   // Node phases: (1 + c) - 2c p, s - 2s p; dead slots have c = s = 0.
-  if (M & kP1) {
+  if (M & kT1) {
     for (int t = 0; t < tb.T1; ++t) {
       const int i = t * G + g;
-      rows.parities(tb.np_w + i * W, p);
-      if (M & kT1) {
-        const float c = __ldg(tb.np_cos + i), s = __ldg(tb.np_sin + i);
+      par.node(t, p);
+      const float c = __ldg(tb.np_cos + i), s = __ldg(tb.np_sin + i);
+      // The factor for parity 0 and for parity 1, formed once for all shots.
+      const float fr0 = 1.0f + c, fr1 = (1.0f + c) - 2.0f * c, fi1 = s - 2.0f * s;
 #pragma unroll
-        for (int k = 0; k < NS; ++k) {
-          const float pf = (float)p[k];
-          cmul(re[k], im[k], (1.0f + c) - (2.0f * c) * pf, s - (2.0f * s) * pf);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < NS; ++k) bare[k] ^= p[k];
-      }
+      for (int k = 0; k < NS; ++k) cmul(re[k], im[k], p[k] ? fr1 : fr0, p[k] ? fi1 : s);
     }
   }
 
   // Half-pi phases: one rotation by w^(sum coeff * parity mod 8).
-  if ((M & kP2) && tb.T2) {
-    int tot[NS];
+  if ((M & kT2) && tb.T2) {
+    par.halfpi(p);
 #pragma unroll
-    for (int k = 0; k < NS; ++k) tot[k] = 0;
-    for (int t = 0; t < tb.T2; ++t) {
-      const int i = t * G + g;
-      rows.parities(tb.hp_w + i * W, p);
-      if (M & kT2) {
-        const int coeff = __ldg(tb.hp_c + i);
-#pragma unroll
-        for (int k = 0; k < NS; ++k) tot[k] += coeff * p[k];
-      } else {
-#pragma unroll
-        for (int k = 0; k < NS; ++k) bare[k] ^= p[k];
-      }
-    }
-    if (M & kT2) {
-#pragma unroll
-      for (int k = 0; k < NS; ++k) rot_staged(re[k], im[k], tot[k] & 7);
-    }
+    for (int k = 0; k < NS; ++k) rot_staged(re[k], im[k], p[k] & 7);
   }
 
   // Pi products: sign (-1)^(XOR over terms of psi & phi).
-  if ((M & kP3) && tb.T3) {
-    int sgn[NS];
+  if ((M & kT3) && tb.T3) {
+    par.sign(p);
 #pragma unroll
-    for (int k = 0; k < NS; ++k) sgn[k] = 0;
-    for (int t = 0; t < tb.T3; ++t) {
-      const int i = t * G + g;
-      rows.parities(tb.psi_w + i * W, p);
-      rows.parities(tb.phi_w + i * W, q);
-      if (M & kT3) {
-        const int pc = __ldg(tb.psi_c + i) & 1, qc = __ldg(tb.phi_c + i) & 1;
-#pragma unroll
-        for (int k = 0; k < NS; ++k) sgn[k] ^= (pc ^ p[k]) & (qc ^ q[k]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < NS; ++k) bare[k] ^= p[k] ^ q[k];
-      }
-    }
-    if (M & kT3) {
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        if (sgn[k]) {
-          re[k] = -re[k];
-          im[k] = -im[k];
-        }
+    for (int k = 0; k < NS; ++k) {
+      if (p[k]) {
+        re[k] = -re[k];
+        im[k] = -im[k];
       }
     }
   }
 
   // Phase pairs: 1 + s_a w^alpha + s_b w^beta - s_a s_b w^(alpha+beta).
-  if (M & kP4) {
+  if (M & kT4) {
     for (int t = 0; t < tb.T4; ++t) {
       const int i = t * G + g;
-      rows.parities(tb.a_w + i * W, p);
-      rows.parities(tb.b_w + i * W, q);
-      if (M & kT4) {
-        const float ca = __ldg(tb.ca + i), sa = __ldg(tb.sa + i);
-        const float cb = __ldg(tb.cb + i), sb = __ldg(tb.sb + i);
-        const float cg = __ldg(tb.cg + i), sg = __ldg(tb.sg + i);
+      par.pair(t, p, q);
+      const float ca = __ldg(tb.ca + i), sa = __ldg(tb.sa + i);
+      const float cb = __ldg(tb.cb + i), sb = __ldg(tb.sb + i);
+      const float cg = __ldg(tb.cg + i), sg = __ldg(tb.sg + i);
 #pragma unroll
-        for (int k = 0; k < NS; ++k) {
-          const float s_a = 1.0f - 2.0f * (float)p[k];
-          const float s_b = 1.0f - 2.0f * (float)q[k];
-          const float s_g = s_a * s_b;
-          cmul(re[k], im[k], 1.0f + s_a * ca + s_b * cb - s_g * cg,
-               s_a * sa + s_b * sb - s_g * sg);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < NS; ++k) bare[k] ^= p[k] ^ q[k];
+      for (int k = 0; k < NS; ++k) {
+        const float s_a = 1.0f - 2.0f * (float)p[k];
+        const float s_b = 1.0f - 2.0f * (float)q[k];
+        const float s_g = s_a * s_b;
+        cmul(re[k], im[k], 1.0f + s_a * ca + s_b * cb - s_g * cg,
+             s_a * sa + s_b * sb - s_g * sg);
       }
     }
   }
 
   if (kBare) {
 #pragma unroll
-    for (int k = 0; k < NS; ++k) re[k] += (float)bare[k];
+    for (int k = 0; k < NS; ++k) re[k] += (float)par.bare(k);
   }
 
   const float pr = __ldg(tb.pre_re + g), pi = __ldg(tb.pre_im + g);
@@ -330,91 +369,106 @@ __device__ __forceinline__ void accumulate_graph(const Tables& tb, int g, const 
   }
 }
 
-// Sums NS shots' (acc_re, acc_im) over the block's threads and writes the
-// shots b0 .. b0 + NS - 1 that lie inside the batch.
-template <int NS>
-__device__ __forceinline__ void block_sum_store(const float (&acc_re)[NS], const float (&acc_im)[NS],
+// The end of the wide configurations: every thread holds the sums of its NG
+// shots (shot 32 k + lane of the block) over its warp's graphs; adds the
+// warps' sums in order and writes the shots that lie inside the batch.
+template <int NG>
+__device__ __forceinline__ void warps_sum_store(const float (&acc_re)[NG], const float (&acc_im)[NG],
                                                 long long b0, long long B, float* __restrict__ out) {
-  __shared__ float red[kWideThreads / 32][NS][2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ float red[kWideThreads / 32][32 * NG][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    float r = acc_re[k], m = acc_im[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      r += __shfl_down_sync(0xffffffffu, r, off);
-      m += __shfl_down_sync(0xffffffffu, m, off);
-    }
-    if (lane == 0) {
-      red[warp][k][0] = r;
-      red[warp][k][1] = m;
-    }
+  for (int k = 0; k < NG; ++k) {
+    red[warp][32 * k + lane][0] = acc_re[k];
+    red[warp][32 * k + lane][1] = acc_im[k];
   }
   __syncthreads();
-  if (tid < 2 * NS) {
-    const int k = tid >> 1, c = tid & 1;
+  for (int j = tid; j < 64 * NG; j += blockDim.x) {
+    const int k = j >> 1, c = j & 1;
     float s = 0.0f;
-    for (int wi = 0; wi < (int)(blockDim.x >> 5); ++wi) s += red[wi][k][c];
+    for (int wi = 0; wi < warps; ++wi) s += red[wi][k][c];
     if (b0 + k < B) out[(b0 + k) * 2 + c] = s;
   }
 }
 
-// Wide configuration (K1; K8 with M below kAllStages): block = NS shots x up
-// to kWideThreads graph lanes, rows in registers.
-template <int W, unsigned M>
-__global__ void __launch_bounds__(kWideThreads)
+// Wide configuration (K1; K8 with M below kAllStages): block = 128 shots
+// (four groups of 32) x up to kWideThreads threads, IB bytes an index of the
+// lists. Dynamic shared memory (bitsliced.cuh): the bit planes, the lists' row
+// table, then one column per thread. The block takes the graphs in chunks of
+// blockDim. In the integer stage a thread is a graph and fills its column for
+// all 128 shots. In the per-shot stage a lane is one shot of each group and
+// warp w takes the chunk's graphs w, w + warps, ...: each thread adds its four
+// shots' products of one graph after the other. At the end the warps' sums
+// are added in order.
+template <unsigned M, int IB>
+__global__ void __launch_bounds__(kWideThreads, 4)
     sample_eval_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                      float* __restrict__ out) {
-  constexpr int NS = kWideShots;
-  __shared__ uint32_t xs[NS][W];
-  const long long b0 = (long long)blockIdx.x * NS;
-  const int tid = threadIdx.x;
-  if (tid < NS) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) xs[tid][i] = b0 + tid < B ? pack_word(x + (b0 + tid) * P, P, i) : 0u;
-  }
+  constexpr int NG = bitsliced::kGroups;
+  extern __shared__ bitsliced::Entry bs_dyn[];
+  const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
+  const int tid = threadIdx.x, stride = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
+  const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
+  bitsliced::Entry* columns = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
+  bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
   __syncthreads();
 
-  RegisterRows<W, NS> rows;
+  float acc_re[NG], acc_im[NG];
 #pragma unroll
-  for (int k = 0; k < NS; ++k)
-#pragma unroll
-    for (int i = 0; i < W; ++i) rows.x[k][i] = xs[k][i];
-
-  float acc_re[NS], acc_im[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
+  for (int k = 0; k < NG; ++k) {
     acc_re[k] = 0.0f;
     acc_im[k] = 0.0f;
   }
-  for (int g = tid; g < tb.G; g += blockDim.x) accumulate_graph<M>(tb, g, rows, acc_re, acc_im);
-  block_sum_store(acc_re, acc_im, b0, B, out);
+  for (int g0 = 0; g0 < tb.G; g0 += stride) {
+    if (g0 + tid < tb.G)
+      bitsliced::integer_stage<M, IB>(tb.lists, g0 + tid, bs_dyn, base, columns + tid, stride);
+    __syncthreads();
+    const int n = min(stride, tb.G - g0);
+    for (int j = warp; j < n; j += warps) {
+      const bitsliced::Column par{columns + j, stride, tb.T1, tb.T4, lane};
+      accumulate_graph<M, NG>(tb, g0 + j, par, acc_re, acc_im);
+    }
+    __syncthreads();  // the columns are filled again by the next chunk
+  }
+  warps_sum_store(acc_re, acc_im, b0, B, out);
 }
 
-// Per-term wide configuration (K3a): as the wide one, with the block's NS
-// rows staged in dynamic shared memory, word i of shot k at xs[i * NS + k].
+// Per-term wide configuration (K3a): the wide configuration's per-shot stage
+// with popcount parities. Block = 256 shots x up to kWideThreads threads, the
+// shots' packed rows staged in dynamic shared memory, word i of shot s at
+// xs[i * 256 + s]; a lane is one shot of each group of 32, warp w takes the
+// graphs w, w + warps, ... of each chunk of blockDim graphs, as "wide" does,
+// so the two add the same f32 values in the same order.
 __global__ void __launch_bounds__(kWideThreads)
     sample_eval_per_term_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                               float* __restrict__ out) {
-  constexpr int NS = kWideShots;
+  constexpr int NG = kPerTermGroups, NS = 32 * NG;
   extern __shared__ uint32_t xs_dyn[];
   const long long b0 = (long long)blockIdx.x * NS;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < NS * tb.W; j += blockDim.x) {
+  const int tid = threadIdx.x, stride = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
+  for (int j = tid; j < NS * tb.W; j += stride) {
     const int k = j % NS, i = j / NS;
     xs_dyn[j] = b0 + k < B ? pack_word(x + (b0 + k) * P, P, i) : 0u;
   }
   __syncthreads();
 
-  const SharedRows<NS> rows{xs_dyn, tb.W, NS};
-  float acc_re[NS], acc_im[NS];
+  const SharedRows<NG> rows{xs_dyn + lane, tb.W, NS, 32};
+  float acc_re[NG], acc_im[NG];
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
+  for (int k = 0; k < NG; ++k) {
     acc_re[k] = 0.0f;
     acc_im[k] = 0.0f;
   }
-  for (int g = tid; g < tb.G; g += blockDim.x) accumulate_graph<kAllStages>(tb, g, rows, acc_re, acc_im);
-  block_sum_store(acc_re, acc_im, b0, B, out);
+  for (int g0 = 0; g0 < tb.G; g0 += stride) {
+    const int n = min(stride, tb.G - g0);
+    for (int j = warp; j < n; j += warps) {
+      const PopcountParities<NG, SharedRows<NG>> par{tb, rows, g0 + j};
+      accumulate_graph<kAllStages, NG>(tb, g0 + j, par, acc_re, acc_im);
+    }
+  }
+  warps_sum_store(acc_re, acc_im, b0, B, out);
 }
 
 // Small configuration (K2): one thread per shot, looping over all graphs.
@@ -428,7 +482,10 @@ __global__ void __launch_bounds__(kSmallThreads)
 #pragma unroll
   for (int i = 0; i < W; ++i) rows.x[0][i] = pack_word(x + b * P, P, i);
   float acc_re[1] = {0.0f}, acc_im[1] = {0.0f};
-  for (int g = 0; g < tb.G; ++g) accumulate_graph<kAllStages>(tb, g, rows, acc_re, acc_im);
+  for (int g = 0; g < tb.G; ++g) {
+    const PopcountParities<1, RegisterRows<W, 1>> par{tb, rows, g};
+    accumulate_graph<kAllStages, 1>(tb, g, par, acc_re, acc_im);
+  }
   out[b * 2] = acc_re[0];
   out[b * 2 + 1] = acc_im[0];
 }
@@ -444,9 +501,12 @@ __global__ void __launch_bounds__(kSmallThreads)
   if (b >= B) return;
   uint32_t* mine = xs_dyn + threadIdx.x;
   for (int i = 0; i < tb.W; ++i) mine[i * blockDim.x] = pack_word(x + b * P, P, i);
-  const SharedRows<1> rows{mine, tb.W, (int)blockDim.x};
+  const SharedRows<1> rows{mine, tb.W, (int)blockDim.x, 0};
   float acc_re[1] = {0.0f}, acc_im[1] = {0.0f};
-  for (int g = 0; g < tb.G; ++g) accumulate_graph<kAllStages>(tb, g, rows, acc_re, acc_im);
+  for (int g = 0; g < tb.G; ++g) {
+    const PopcountParities<1, SharedRows<1>> par{tb, rows, g};
+    accumulate_graph<kAllStages, 1>(tb, g, par, acc_re, acc_im);
+  }
   out[b * 2] = acc_re[0];
   out[b * 2 + 1] = acc_im[0];
 }
@@ -456,38 +516,51 @@ int wide_threads(int G) {
   return lanes < kWideThreads ? lanes : kWideThreads;
 }
 
-template <int W, unsigned M>
-void launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
-                 cudaStream_t stream) {
-  const long long blocks = (B + kWideShots - 1) / kWideShots;
-  sample_eval_wide<W, M><<<(unsigned)blocks, wide_threads(tb.G), 0, stream>>>(x, B, P, tb, out);
+// A block's static and dynamic shared memory together may exceed the
+// default 48 KB only with the kernel's consent; beyond what the card has,
+// the attribute is refused and the launch is not made.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.sharedSizeBytes + bytes <= (size_t)kDefaultSharedBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <unsigned M, int IB>
+cudaError_t launch_wide_as(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
+                           cudaStream_t stream) {
+  const int threads = wide_threads(tb.G);
+  const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, threads);
+  const cudaError_t err = allow_shared(sample_eval_wide<M, IB>, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
+  sample_eval_wide<M, IB><<<(unsigned)blocks, threads, bytes, stream>>>(x, B, P, tb, out);
+  return cudaSuccess;
+}
+
+template <unsigned M>
+cudaError_t launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
+                        cudaStream_t stream) {
+  return bitsliced::index_bytes(P) == 1 ? launch_wide_as<M, 1>(x, B, P, tb, out, stream)
+                                        : launch_wide_as<M, 2>(x, B, P, tb, out, stream);
 }
 
 template <int W>
-void launch_packed(const uint8_t* x, long long B, int P, const Tables& tb, int config, float* out,
-                   cudaStream_t stream) {
-  if (config == kWide) {
-    launch_wide<W, kAllStages>(x, B, P, tb, out, stream);
-  } else {
-    const long long blocks = (B + kSmallThreads - 1) / kSmallThreads;
-    sample_eval_small<W><<<(unsigned)blocks, kSmallThreads, 0, stream>>>(x, B, P, tb, out);
-  }
-}
-
-// Dynamic shared memory above the default 48 KB needs the kernel's consent.
-template <class Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= (size_t)kDefaultSharedBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+void launch_small(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
+                  cudaStream_t stream) {
+  const long long blocks = (B + kSmallThreads - 1) / kSmallThreads;
+  sample_eval_small<W><<<(unsigned)blocks, kSmallThreads, 0, stream>>>(x, B, P, tb, out);
 }
 
 cudaError_t launch_per_term(const uint8_t* x, long long B, int P, const Tables& tb, int config,
                             float* out, cudaStream_t stream) {
   if (config == kPerTermWide) {
-    const size_t bytes = sizeof(uint32_t) * kWideShots * tb.W;
+    const size_t bytes = sizeof(uint32_t) * 32 * kPerTermGroups * tb.W;
     const cudaError_t err = allow_shared(sample_eval_per_term_wide, bytes);
     if (err != cudaSuccess) return err;
-    const long long blocks = (B + kWideShots - 1) / kWideShots;
+    const long long blocks = (B + 32 * kPerTermGroups - 1) / (32 * kPerTermGroups);
     sample_eval_per_term_wide<<<(unsigned)blocks, wide_threads(tb.G), bytes, stream>>>(x, B, P, tb,
                                                                                       out);
   } else {
@@ -505,27 +578,25 @@ cudaError_t launch_per_term(const uint8_t* x, long long B, int P, const Tables& 
 
 // Stage masks of the ablation variants, in the order of
 // kernels/sample_eval.py::ABLATION_VARIANTS (names of dev/kernel_ablate.py).
-template <int W>
-int launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb, int variant, float* out,
-                  cudaStream_t stream) {
+cudaError_t launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb, int variant,
+                          float* out, cudaStream_t stream) {
   switch (variant) {
-    case 0: launch_wide<W, 0>(x, B, P, tb, out, stream); break;                            // empty
-    case 1: launch_wide<W, kP1>(x, B, P, tb, out, stream); break;                          // par1
-    case 2: launch_wide<W, kP1 | kP2 | kP3 | kP4>(x, B, P, tb, out, stream); break;        // par-all
-    case 3: launch_wide<W, kP1 | kT1>(x, B, P, tb, out, stream); break;                    // par1+T1
-    case 4: launch_wide<W, kP1 | kT1 | kP2 | kT2 | kP3 | kT3>(x, B, P, tb, out, stream); break;  // par+T1..T3
-    case 5: launch_wide<W, kAllStages>(x, B, P, tb, out, stream); break;                   // full
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return launch_wide<0>(x, B, P, tb, out, stream);                            // empty
+    case 1: return launch_wide<kP1>(x, B, P, tb, out, stream);                          // par1
+    case 2: return launch_wide<kP1 | kP2 | kP3 | kP4>(x, B, P, tb, out, stream);        // par-all
+    case 3: return launch_wide<kP1 | kT1>(x, B, P, tb, out, stream);                    // par1+T1
+    case 4: return launch_wide<kP1 | kT1 | kP2 | kT2 | kP3 | kT3>(x, B, P, tb, out, stream);  // par+T1..T3
+    case 5: return launch_wide<kAllStages>(x, B, P, tb, out, stream);                   // full
+    default: return cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace
 
 // x: (B, P) uint8 rows; flat: the rung's table buffer; out: (B, 2) float32.
-// config: 0 small, 1 wide (W <= 4), 2 per-term small, 3 per-term wide (any
-// W). Returns cudaGetLastError() after the launch (0 on success); the caller
-// raises on anything else.
+// config: 0 small (W <= 4), 1 wide (any W), 2 per-term small, 3 per-term wide
+// (any W). Returns the first CUDA error of the launch (0 on success); the
+// caller raises on anything else.
 extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* flat, int G,
                                 int T1, int T2, int T3, int T4, int W, int config, void* out,
                                 void* stream) {
@@ -534,41 +605,37 @@ extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* f
   const uint8_t* xp = static_cast<const uint8_t*>(x);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (config == kPerTermSmall || config == kPerTermWide) {
-    const cudaError_t err = launch_per_term(xp, B, P, tb, config, op, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
-  if (config != kSmall && config != kWide) return (int)cudaErrorInvalidValue;
-  switch (W) {
-    case 1: launch_packed<1>(xp, B, P, tb, config, op, s); break;
-    case 2: launch_packed<2>(xp, B, P, tb, config, op, s); break;
-    case 3: launch_packed<3>(xp, B, P, tb, config, op, s); break;
-    case 4: launch_packed<4>(xp, B, P, tb, config, op, s); break;
+  cudaError_t err = cudaSuccess;
+  switch (config) {
+    case kWide: err = launch_wide<kAllStages>(xp, B, P, tb, op, s); break;
+    case kPerTermSmall:
+    case kPerTermWide: err = launch_per_term(xp, B, P, tb, config, op, s); break;
+    case kSmall:
+      switch (W) {
+        case 1: launch_small<1>(xp, B, P, tb, op, s); break;
+        case 2: launch_small<2>(xp, B, P, tb, op, s); break;
+        case 3: launch_small<3>(xp, B, P, tb, op, s); break;
+        case 4: launch_small<4>(xp, B, P, tb, op, s); break;
+        default: return (int)cudaErrorInvalidValue;
+      }
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The wide kernel with the stages of ablation variant `variant` (0 empty,
-// 1 par1, 2 par-all, 3 par1+T1, 4 par+T1..T3, 5 full); W <= 4.
+// 1 par1, 2 par-all, 3 par1+T1, 4 par+T1..T3, 5 full).
 extern "C" int tsim_sample_eval_ablate(const void* x, long long B, int P, const void* flat, int G,
                                        int T1, int T2, int T3, int T4, int W, int variant,
                                        void* out, void* stream) {
-  if (B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || G <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   const Tables tb = make_tables(static_cast<const int32_t*>(flat), G, T1, T2, T3, T4, W);
-  const uint8_t* xp = static_cast<const uint8_t*>(x);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = 0;
-  switch (W) {
-    case 1: err = launch_ablate<1>(xp, B, P, tb, variant, op, s); break;
-    case 2: err = launch_ablate<2>(xp, B, P, tb, variant, op, s); break;
-    case 3: err = launch_ablate<3>(xp, B, P, tb, variant, op, s); break;
-    case 4: err = launch_ablate<4>(xp, B, P, tb, variant, op, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != 0) return err;
+  const cudaError_t err =
+      launch_ablate(static_cast<const uint8_t*>(x), B, P, tb, variant, static_cast<float*>(out),
+                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

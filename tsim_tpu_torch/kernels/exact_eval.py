@@ -63,10 +63,13 @@ def _check(tables, x: torch.Tensor) -> None:
         raise ValueError("the exact kernels need at least one graph")
 
 
-def _launch(name: str, err: int, lib) -> None:
+def _launch(name: str, err: int, lib, tables) -> None:
     if err != 0:
         msg = lib.tsim_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: cudaError {err}: {msg}")
+        raise RuntimeError(
+            f"{name} launch failed on {tables.num_graphs} graphs over {tables.n_params} "
+            f"parameters: cudaError {err}: {msg}"
+        )
     launch_counts[name] += 1
 
 
@@ -95,7 +98,7 @@ def exact_partials(tables, x: torch.Tensor):
             ctypes.c_void_p(out_c.data_ptr()), ctypes.c_void_p(out_p.data_ptr()),
             ctypes.c_void_p(stream),
         )
-    _launch(f"exact_{config}", err, lib)
+    _launch(f"exact_{config}", err, lib, tables)
     return out_c, out_p
 
 
@@ -121,5 +124,5 @@ def approx_partials(tables, x: torch.Tensor) -> torch.Tensor:
             G, t1, t2, t3, t4, tables.words, int(config == "wide"), graph_tile(G),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream),
         )
-    _launch(f"approx_{config}", err, lib)
+    _launch(f"approx_{config}", err, lib, tables)
     return out

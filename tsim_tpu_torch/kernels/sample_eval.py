@@ -7,8 +7,9 @@ no fallback: the plain version
 tensors, chosen by the caller, which also runs the start-up self-test
 (``compile/sample_eval.py::ensure_self_test``).
 
-Configurations by name (and the TPU kernel each replaces): ``wide`` (K1),
-``small`` (K2), ``per_term_wide`` (K3a), ``per_term_small`` (K3b);
+Configurations by name (and the TPU kernel each replaces): ``wide`` (K1,
+bit-sliced parities, any number of parameters), ``small`` (K2, at most
+MAX_WORDS packed words), ``per_term_wide`` (K3a), ``per_term_small`` (K3b);
 ``self_test`` counts the launches of the start-up self-test (K4) and
 ``ablate`` those of the stage ablation (K8, ``dev/torch_kernel_ablate.py``).
 """
@@ -63,11 +64,14 @@ def use_packed() -> bool:
     return os.environ.get("TSIM_TPU_SAMPLE_TPACK", "1") != "0"
 
 
-def configuration(num_graphs: int, words: int = 1) -> str:
+def configuration(num_graphs: int, words: int = 1, per_term: bool | None = None) -> str:
     """The f32 configuration of a rung: per-term where its rows need more
-    than MAX_WORDS packed words or the packed kernels are switched off."""
+    than MAX_WORDS packed words, where ``per_term`` is true or, with
+    ``per_term`` None, where the switch of :func:`use_packed` is off."""
     base = layout(num_graphs)
-    if words > MAX_WORDS or not use_packed():
+    if per_term is None:
+        per_term = not use_packed()
+    if words > MAX_WORDS or per_term:
         return f"per_term_{base}"
     return base
 
@@ -106,7 +110,10 @@ def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str) -> torc
         )
     if err != 0:
         msg = lib.tsim_cuda_error_string(err).decode()
-        raise RuntimeError(f"{entry} ({count_as}) launch failed: cudaError {err}: {msg}")
+        raise RuntimeError(
+            f"{entry} ({count_as}) launch failed on {tables.num_graphs} graphs over "
+            f"{tables.n_params} parameters: cudaError {err}: {msg}"
+        )
     launch_counts[count_as] += 1
     return out
 
@@ -116,8 +123,8 @@ def launch(tables, x: torch.Tensor, config: str, count_as: str | None = None) ->
     (B, P) uint8 rows on a CUDA device -> (B, 2) float32 (re, im)."""
     if config not in CONFIGURATIONS:
         raise ValueError(f"configuration must be one of {CONFIGURATIONS}, got {config!r}")
-    if not config.startswith("per_term") and tables.words > MAX_WORDS:
-        raise ValueError(f"{config}: {tables.words} words per row, the packed kernels take {MAX_WORDS}")
+    if config == "small" and tables.words > MAX_WORDS:
+        raise ValueError(f"small: {tables.words} words per row, the packed kernels take {MAX_WORDS}")
     return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or config)
 
 
@@ -126,13 +133,12 @@ def ablate(tables, x: torch.Tensor, variant: str) -> torch.Tensor:
     names = [name for name, _, _ in ABLATION_VARIANTS]
     if variant not in names:
         raise ValueError(f"variant must be one of {names}, got {variant!r}")
-    if tables.words > MAX_WORDS:
-        raise ValueError(f"the ablation runs the packed wide kernel: at most {MAX_WORDS} words")
     return _call("tsim_sample_eval_ablate", names.index(variant), tables, x, "ablate")
 
 
 def sample_product_sum(tables, x: torch.Tensor) -> torch.Tensor:
     """(B, P) uint8 parameter rows on a CUDA device -> (B, 2) float32 (re, im)
     of the graph-summed product, for the rung held by ``tables``, in the
-    rung's configuration."""
-    return launch(tables, x, configuration(tables.num_graphs, tables.words))
+    rung's configuration (``tables.per_term``, where set, decides between
+    the packed and the per-term kernels in place of the environment's switch)."""
+    return launch(tables, x, configuration(tables.num_graphs, tables.words, tables.per_term))

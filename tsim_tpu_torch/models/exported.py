@@ -34,9 +34,12 @@ class ExportedCircuit:
         return load_npz(self.state_probs_path)
 
     def compile_detector_sampler(
-        self, *, seed: int | None = None, device=None, evaluation: str = "f32"
+        self, *, seed: int | None = None, device=None, evaluation: str = "f32",
+        per_term: bool | None = None,
     ) -> CompiledDetectorSampler:
-        return CompiledDetectorSampler(self.load(), seed=seed, device=device, evaluation=evaluation)
+        return CompiledDetectorSampler(
+            self.load(), seed=seed, device=device, evaluation=evaluation, per_term=per_term
+        )
 
     def compile_state_probs(self, *, seed: int | None = None, device=None) -> CompiledStateProbs:
         return CompiledStateProbs(self.load_state_probs(), seed=seed, device=device)

@@ -38,22 +38,23 @@ class ComponentTables(nn.Module):
     """One component: its f-column selection, output indices and the
     evaluator tables of each rung (``rung_tables``)."""
 
-    def __init__(self, component, evaluation: str = "f32"):
+    def __init__(self, component, evaluation: str = "f32", per_term: bool | None = None):
         super().__init__()
         self.register_buffer("f_selection", _long(component.f_selection))
         self.register_buffer("output_indices", _long(component.output_indices))
         self.rungs = nn.ModuleList(
-            rung_tables(c, evaluation) for c in component.compiled_scalar_graphs
+            rung_tables(c, evaluation, per_term) for c in component.compiled_scalar_graphs
         )
 
 
 class ProgramTables(nn.Module):
     """A compiled program's device data; ``.to(device)`` moves all of it once.
 
-    ``evaluation`` is "f32" or "exact" (see ``compile/sample_eval.py``).
+    ``evaluation`` is "f32" or "exact" and ``per_term`` chooses the f32
+    kernels (see ``compile/sample_eval.py::rung_tables``).
     """
 
-    def __init__(self, program, evaluation: str = "f32"):
+    def __init__(self, program, evaluation: str = "f32", per_term: bool | None = None):
         super().__init__()
         self.num_outputs = int(program.num_outputs)
         n_direct = len(np.asarray(program.direct_f_indices))
@@ -72,7 +73,7 @@ class ProgramTables(nn.Module):
         reindex = program.output_reindex if self.has_reindex else ()
         self.register_buffer("output_reindex", _long(reindex))
         self.components = nn.ModuleList(
-            ComponentTables(c, evaluation) for c in program.components
+            ComponentTables(c, evaluation, per_term) for c in program.components
         )
 
     def direct_outputs(self, f_params: torch.Tensor) -> torch.Tensor:
@@ -227,10 +228,16 @@ class _CompiledSamplerBase:
 
     ``evaluation`` selects how rungs are evaluated: "f32" (the default;
     rungs that fail ``sample_eligible`` are still exact) or "exact" (every
-    rung; the norm monitor's band narrows from 3e-3 to 1e-5).
+    rung; the norm monitor's band narrows from 3e-3 to 1e-5). ``per_term``
+    True runs every f32 rung through the per-term kernels (the slower
+    oracle of the packed ones), False through the packed ones where its rows
+    fit; None follows ``TSIM_TPU_SAMPLE_TPACK`` as tsim_tpu does.
     """
 
-    def __init__(self, exported, *, seed: int | None = None, device=None, evaluation: str = "f32"):
+    def __init__(
+        self, exported, *, seed: int | None = None, device=None, evaluation: str = "f32",
+        per_term: bool | None = None,
+    ):
         self.evaluation = check_evaluation(evaluation)
         self.device = _resolve_device(device)
         if seed is None:
@@ -239,7 +246,7 @@ class _CompiledSamplerBase:
         self._generator.manual_seed(seed)
         self._program = exported.program
         self._num_detectors = int(exported.num_detectors)
-        self._tables = ProgramTables(exported.program, evaluation).to(self.device)
+        self._tables = ProgramTables(exported.program, evaluation, per_term).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
         self._direct_detector_mask = _direct_detector_mask(exported.program, self._num_detectors)
         self._reference_seed = seed
