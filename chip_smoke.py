@@ -21,7 +21,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    cultivation program, the d3 program and the d3 state-probability
    program, at 2^20 + 1 seeded rows: exact kernels give equal magnitudes,
    approximate ones agree within rtol 1e-5 of the row's magnitude; each
-   kernel and the plain version are timed with CUDA events on one rung;
+   kernel and the plain version are timed with CUDA events on one rung, and
+   the wide approximate kernel (K6) also on d3's three wide rungs and on
+   2^20 + 1 rows that the state-probability path draws itself;
 6. state probabilities: ``distillation_d3(p=0.05).compile_state_probs(
    seed=0, device="cuda").probability_of(state, batch_size=2**20)`` for
    the exported states (values finite, in [0, 1]; calls/s and rows/s), and
@@ -33,15 +35,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    shots/s), the exported 4096-shot replay of tsim_tpu's exact sampling
    reproduced bit for bit, and one 2^20-shot batch of d3 distillation in
    exact mode (norm deviation, z-scores as in phase 4);
-8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``),
-   the bit-sliced wide one (K1, any row) and, where a row fits 4 words, the
-   packed small one (K2) vs the plain version on every rung of d3, 1-check
+8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``)
+   and the bit-sliced ones (K1 ``wide``, K2 ``small``, any row) vs the plain
+   version on every rung of d3, 1-check
    and 2-check cultivation and on two seeded rungs over 160 parameters, at
-   2^20 + 1 rows, and whether K1 equals K3a bit for bit; within rtol 1e-5 of
+   2^20 + 1 rows; K1 must equal K3a, and K2 K3b, bit for bit; within rtol 1e-5 of
    the row's mass (the sum over graphs of |product|: cultivation's graph
    sums cancel to near zero on most rows, where only the mass sets the
    scale of f32 rounding); timed in turns with the plain version: K1 and K3a
-   on cultivation's 307-graph rung, K2 and K3b on d3's 6-graph rung;
+   on cultivation's 307-graph rung, K2 and K3b on d3's 6-graph rung and on
+   1-check cultivation's last 16-graph rung (K2 there also at 1024 and
+   16,384 rows);
 9. the start-up self-test of the f32 kernels (K4): its result, and its
    four launches and their plain versions timed, each call on the card
    alone (events queued behind a sleep, so host time stays out);
@@ -69,13 +73,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
     over 130 and 200 parameters with 5 and 40 graphs, exact and approximate,
     at 2^16 + 1 rows, kernel vs the plain exact evaluator (exact rungs
     bit-equal, approximate ones within rtol 1e-5 of the batch's largest
-    magnitude: their random graph sums cancel on some rows).
+    magnitude: their random graph sums cancel on some rows);
+15. the stage split of the wide approximate kernel (K6) on the state-probability
+    rung at 2^20 rows: ``empty``, ``par-all`` and ``full``, which must equal K6
+    bit for bit.
 
 Each path of phases 4, 6, 7 and 10 to 13 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
 launched fails the run. The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
-``f32_bound`` and ``exact_bound``); the last line is ``{"ok": true,
+``f32_bound``, ``exact_bound`` and ``approx_bound``; a kernel faster than its
+bound fails the run); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -214,6 +222,19 @@ def exact_bound(circuit, tables, rows: int) -> tuple[float, str]:
     return _bound(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
+def approx_bound(circuit, tables, rows: int) -> tuple[float, str]:
+    """(least ms, what bounds it) of one evaluation with the approximate
+    finisher (K6, K7b), stated so that it reads the same whatever implements
+    the product: the bytes of :func:`exact_bound`, and one int32 operation per
+    live term of any family per row beside the bit-sliced parities
+    (:func:`parity_bits` / 32). :func:`exact_bound` charges a node-phase term
+    the 4 adds of ``acc + w^k acc``; a product kept as counters needs one, so
+    that count could be beaten and is kept for the exact finisher only."""
+    ops = rows * (sum(live_terms(circuit)) + parity_bits(circuit) / 32)
+    nbytes = rows * tables.n_params + 4 * (tables.flat.numel() + tables.approx.numel()) + rows * 8
+    return _bound(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -295,19 +316,21 @@ def check_launched(label: str, launches: dict, expected) -> None:
         fail(f"{label}: kernels {missing} of the path were not launched")
 
 
-def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict]:
+def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
     """Phase 5: each exact kernel vs the plain exact evaluator on every rung
     at KERNEL_ROWS rows, and the timings of EXACT_TIMED.
 
-    Returns ({kernel: max abs err}, {kernel: (kernel ms, plain ms)}).
+    Returns ({kernel: max abs err}, {kernel: (kernel ms, plain ms, bound ms,
+    bound by, rung)}, {approximate kernel: its bound ms counted as the exact
+    finisher's is}).
     """
     from tsim_tpu_torch.compile.evaluate import evaluate_abs
     from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
     from tsim_tpu_torch.compile.exact_tables import ExactTables
     from tsim_tpu_torch.kernels import exact_eval as kernel
 
-    max_abs = dict.fromkeys(kernel.launch_counts, 0.0)
-    timing = {}
+    max_abs = dict.fromkeys(kernel.KERNELS, 0.0)
+    timing, as_exact = {}, {}
     seed = 200
     for label, exported in programs.items():
         rungs = [c for comp in exported.program.components for c in comp.compiled_scalar_graphs]
@@ -350,6 +373,12 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict]:
                 k2 = time_ms(lambda: partials(t, x))
                 _, p2 = timed_once(lambda: evaluate_abs(t.circuit(), x))
                 bound = exact_bound(csg, t, KERNEL_ROWS)
+                if t.approximate:
+                    as_exact[name], by = bound
+                    bound = approx_bound(csg, t, KERNEL_ROWS)
+                    print(f"bound of {name} on {label} G={t.num_graphs}: {bound[0]:.4f} ms ({bound[1]}; one "
+                          f"operation a live term), {as_exact[name]:.4f} ms ({by}) as the exact finisher's "
+                          "is counted", flush=True)
                 timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"{label} G={t.num_graphs}")
                 print(
                     f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound "
@@ -358,11 +387,44 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict]:
                     f"plain {p1:.2f} / {p2:.2f} ms",
                     flush=True,
                 )
+            elif name == "approx_wide":
+                bound = approx_bound(csg, t, KERNEL_ROWS)
+                print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound {bound[0]:.4f} ms "
+                      f"({bound[1]}), kernel {time_ms(lambda: kernel.approx_partials(t, x)):.4f} ms", flush=True)
             del t, x
             torch.cuda.empty_cache()
     if set(timing) != set(EXACT_TIMED):
         fail(f"no rung with the timed graph counts {EXACT_TIMED}")
-    return max_abs, timing
+    return max_abs, timing, as_exact
+
+
+def path_rows_time(circuit) -> None:
+    """Phase 5, K6 on the rows the state-probability path evaluates: f-bits
+    drawn by its own noise sampler, the first exported state tiled behind
+    them. Seeded uniform rows make almost every graph product of the joint
+    rung vanish; the path's rows are mostly zeros and few products vanish."""
+    from tsim_tpu_torch.compile.evaluate import evaluate_abs
+    from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
+    from tsim_tpu_torch.kernels import exact_eval as kernel
+    from tsim_tpu_torch.sampler import static_take_columns
+
+    sp = circuit.compile_state_probs(seed=0, device=DEVICE)
+    comp = sp._tables.components[0]
+    joint = comp.rungs[1]
+    state = torch.as_tensor(np.asarray(circuit.load_state_probs().replay["states"][0], np.uint8), device=DEVICE)
+    f = sp._device_channels.sample(sp._generator, KERNEL_ROWS)
+    x = torch.cat([static_take_columns(f, comp.f_selection),
+                   state[comp.output_indices].expand(KERNEL_ROWS, -1)], dim=1).contiguous()
+    got, want = evaluate_abs_exact(joint, x), evaluate_abs(joint.circuit(), x)
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all() and (err <= ATOL + RTOL * want).all())
+    ms = time_ms(lambda: kernel.approx_partials(joint, x))
+    print(f"d3_state_probs G={joint.num_graphs} approx_wide on {KERNEL_ROWS} rows of the path's own noise "
+          f"({float((want > 0).float().mean()):.4f} of them nonzero): max rel err "
+          f"{float((err / want.clamp_min(1e-30)).max()):.3e} (rtol {RTOL}) -> {'ok' if ok else 'FAIL'}; "
+          f"kernel {ms:.4f} ms", flush=True)
+    if not ok:
+        fail("approx_wide disagrees with the plain exact evaluator on the path's own rows")
 
 
 def state_probs_path(circuit) -> dict:
@@ -466,17 +528,19 @@ def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
 
 
 def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
-    """Phase 8: per-term, bit-sliced wide and (where a row fits) packed small
-    f32 kernels vs the plain version on every rung at KERNEL_ROWS rows, and the timings of
-    K1/K3a on cultivation's 307-graph rung and K2/K3b on d3's 6-graph rung.
+    """Phase 8: the per-term and the bit-sliced f32 kernels vs the plain
+    version on every rung at KERNEL_ROWS rows (the two of a layout equal bit
+    for bit), and the timings of K1/K3a on cultivation's 307-graph rung and
+    K2/K3b on d3's 6-graph rung and on 1-check cultivation's last 16-graph rung.
 
     Returns ({configuration: max abs err}, {configuration: (kernel ms,
     plain ms, bound ms, bound by, rung)})."""
     from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference, synthetic_rung
-    from tsim_tpu_torch.compile.sample_tables import MAX_WORDS, SampleTables
+    from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
     timed = {("cultivation", 307): ("wide", "per_term_wide"), ("d3", 6): ("small", "per_term_small")}
+    heaviest_small = ("cultivation_checks1", 16, 27)  # (program, graphs, parameters)
     rungs = [
         (label, c) for label, exported in programs.items()
         for comp in exported.program.components for c in comp.compiled_scalar_graphs
@@ -491,7 +555,7 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
         want, mass = sample_product_sum_reference(t, x, with_mass=True)
         scale, norm = mass[:, None], want.norm(dim=1, keepdim=True)
         layout = kernel.layout(t.num_graphs)
-        configs = [f"per_term_{layout}"] + ([layout] if layout == "wide" or t.words <= MAX_WORDS else [])
+        configs = [f"per_term_{layout}", layout]
         outs = {}
         for config in configs:
             got = outs[config] = kernel.launch(t, x, config)
@@ -509,13 +573,20 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
             if not ok:
                 fail(f"{label} G={t.num_graphs}: {config} disagrees with the plain version beyond rtol {RTOL}")
             del got, err
-        if len(outs) == 2:
-            same = torch.equal(*outs.values())
-            print(f"{label} G={t.num_graphs}: {configs[0]} equals {configs[1]} bit for bit: {same}", flush=True)
-            if layout == "wide" and not same:
-                fail(f"{label} G={t.num_graphs}: wide and per_term_wide add the same f32 values in "
-                     "the same order and must agree bit for bit")
+        same = torch.equal(*outs.values())
+        print(f"{label} G={t.num_graphs}: {configs[0]} equals {configs[1]} bit for bit: {same}", flush=True)
+        if not same:
+            fail(f"{label} G={t.num_graphs}: {configs[1]} and {configs[0]} add the same f32 values in "
+                 "the same order and must agree bit for bit")
         del outs
+        if (label, t.num_graphs, t.n_params) == heaviest_small:
+            a = time_ms(lambda: kernel.launch(t, x, "small"))
+            b = time_ms(lambda: kernel.launch(t, x, "per_term_small"))
+            bound = f32_bound(c, 4 * t.flat.numel(), KERNEL_ROWS)
+            few = {n: time_ms(lambda n=n: kernel.launch(t, x[:n], "small"), reps=20) for n in (1024, 16384)}
+            print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} P={t.n_params}: bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), small {a:.4f} ms, per_term_small {b:.4f} ms; small at "
+                  + ", ".join(f"{n} rows {ms:.4f} ms" for n, ms in few.items()), flush=True)
         pair = timed.get((label, t.num_graphs))
         if pair and pair[0] not in timing:
             # In turns: plain, packed, per-term, per-term, packed, plain.
@@ -699,6 +770,22 @@ def ablation_path(circuit, label: str, dev) -> tuple[dict, tuple, float]:
     return launches, (full["ms"], plain, *bound, f"{label} G={circuit.num_graphs}, full"), max_err
 
 
+def approx_ablation_path(circuit, dev) -> None:
+    """Phase 15: K6's stage split on the rung ``circuit`` at MAIN_BATCH rows."""
+    from dev.torch_kernel_ablate import ablate_approx_rung
+    from tsim_tpu_torch.kernels import exact_eval as kernel
+
+    x = rows(circuit.n_params, MAIN_BATCH, seed=800, device=dev)
+    kernel.reset_launch_counts()
+    results = ablate_approx_rung(circuit, x)
+    check_launched("approx ablation", dict(kernel.launch_counts), ["approx_ablate"])
+    for r in results:
+        print(f"approx ablation G={circuit.num_graphs}, B={MAIN_BATCH}: {r['name']:8s} {r['ms']:9.4f} ms "
+              f"[{r['oracle']}] -> {'ok' if r['ok'] else 'FAIL'}", flush=True)
+    if not all(r["ok"] for r in results):
+        fail("approx ablation: a variant failed its oracle")
+
+
 def long_row_phase(dev) -> None:
     """Phase 14: the exact kernels on rungs over 128 parameters, against the
     plain exact evaluator on the card: wide (40 graphs) and small (5), exact
@@ -738,7 +825,7 @@ def long_row_phase(dev) -> None:
                   f"-> {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail(f"long rows: {name} disagrees with the plain exact evaluator at P={n_params}, G={graphs}")
-    check_launched("long rows", dict(kernel.launch_counts), list(kernel.launch_counts))
+    check_launched("long rows", dict(kernel.launch_counts), list(kernel.KERNELS))
 
 
 def main() -> None:
@@ -853,7 +940,7 @@ def main() -> None:
     from tsim_tpu_torch.models import cultivation_d3
 
     cultivation = cultivation_d3(p=0.001, checks=2)
-    exact_err, exact_timing = exact_kernel_phase(
+    exact_err, exact_timing, as_exact = exact_kernel_phase(
         {
             "cultivation": cultivation.load(),
             "d3": exported,
@@ -861,6 +948,7 @@ def main() -> None:
         },
         dev,
     )
+    path_rows_time(circuit)
 
     # ---- phase 6: state probabilities -----------------------------------
     paths = [state_probs_path(circuit)]
@@ -912,8 +1000,14 @@ def main() -> None:
     # ---- phase 14: the exact kernels past 128 parameters ------------------
     long_row_phase(dev)
 
+    # ---- phase 15: the stage split of the wide approximate kernel --------
+    approx_ablation_path(circuit.load_state_probs().program.components[0].compiled_scalar_graphs[1], dev)
+
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed
+        if ms < bound_ms:
+            fail(f"{name}: {ms:.4f} ms on {rung} is below its bound of {bound_ms:.4f} ms: "
+                 "the bound or the timing is at fault")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -937,6 +1031,9 @@ def main() -> None:
               exact_timing[name])
         for name in EXACT_REPLACES
     ]
+    for e in entries:  # the approximate finisher's bound as the exact one's is counted, beside its own
+        if e["name"] in as_exact:
+            e["bound_ms_as_exact"] = as_exact[e["name"]]
     entries.append(entry("sample_eval_ablate", SOURCE, ABLATE_REPLACES, ablate_launches["ablate"],
                          ablate_err, ablate_timing))
     print(f"packed vs per-term at B={KERNEL_ROWS} on the timed rungs: " + ", ".join(

@@ -1,4 +1,5 @@
-"""Split the wide f32 sampling kernel's time by stage on a CUDA card.
+"""Split the wide f32 sampling kernel's time by stage on a CUDA card, or that
+of the wide approximate exact kernel (``--kernel approx``).
 
 The port of ``dev/kernel_ablate.py``: it launches the wide kernel of
 ``tsim_tpu_torch/kernels/csrc/sample_eval.cu`` (K1) with some of its stages
@@ -20,8 +21,18 @@ of |product|, ``sample_product_sum_reference``); ``par1`` and
 
     python3 dev/torch_kernel_ablate.py [--program cultivation] [--rung 9]
                                        [--rows-log2 20] [--reps 10]
+    python3 dev/torch_kernel_ablate.py --kernel approx [--program d3_state_probs] [--rung 1]
 
 The default is the 307-graph rung of 2-check cultivation at 2^20 rows.
+
+``--kernel approx`` splits ``approx_wide`` (K6, ``kernels/csrc/exact_eval.cu``,
+``tsim_approx_eval_ablate``) on a rung with approximate floatfactors, by
+default the 172-graph joint rung of d3's state probabilities: ``empty`` (the
+prefactor and the graph sum), ``par-all`` (with the integer stage, its
+parities consumed without factors), ``full`` (K6's own code, equal to K6 bit
+for bit). ``par-all`` less ``empty`` is the integer stage, ``full`` less
+``par-all`` the per-shot stage.
+
 Needs a CUDA device; imports only the port.
 """
 
@@ -38,7 +49,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 RTOL, ATOL = 1e-5, 1e-8
-PROGRAMS = ("cultivation", "cultivation_checks1", "d3")
+PROGRAMS = ("cultivation", "cultivation_checks1", "d3", "d3_state_probs")
 
 
 def load_rung(program: str, rung: int):
@@ -49,6 +60,7 @@ def load_rung(program: str, rung: int):
         "cultivation": lambda: cultivation_d3(p=0.001, checks=2).load(),
         "cultivation_checks1": lambda: cultivation_d3(p=0.001, checks=1).load(),
         "d3": lambda: distillation_d3(p=0.05).load(),
+        "d3_state_probs": lambda: distillation_d3(p=0.05).load_state_probs(),
     }[program]()
     return exported.program.components[0].compiled_scalar_graphs[rung]
 
@@ -125,29 +137,58 @@ def ablate_rung(circuit, x, reps: int = 10) -> list[dict]:
     return results
 
 
+def ablate_approx_rung(circuit, x, reps: int = 10) -> list[dict]:
+    """Every variant of K6's stage split on the approximate rung ``circuit``
+    and the CUDA rows ``x``: dicts as :func:`ablate_rung` gives them."""
+    import torch
+
+    from tsim_tpu_torch.compile.exact_tables import ExactTables
+    from tsim_tpu_torch.kernels import exact_eval as kernel
+
+    tables = ExactTables(circuit).to(x.device)
+    k6 = kernel.approx_partials(tables, x)
+    results = []
+    for name in kernel.APPROX_ABLATION_VARIANTS:
+        got = kernel.ablate_approx(tables, x, name)
+        torch.cuda.synchronize()
+        ok, err = bool(torch.isfinite(got).all()), None
+        oracle = "finite (timing only)"
+        if name == "full":
+            oracle, ok = "K6 bit for bit", ok and torch.equal(got, k6)
+            err = float((got - k6).abs().max())
+        ms = time_ms(lambda n=name: kernel.ablate_approx(tables, x, n), reps)
+        results.append({"name": name, "ms": ms, "oracle": oracle, "err": err, "abs_err": err, "ok": ok})
+        del got
+    return results
+
+
 def main() -> None:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--program", choices=PROGRAMS, default="cultivation")
-    parser.add_argument("--rung", type=int, default=9)
+    parser.add_argument("--kernel", choices=("f32", "approx"), default="f32")
+    parser.add_argument("--program", choices=PROGRAMS)
+    parser.add_argument("--rung", type=int)
     parser.add_argument("--rows-log2", type=int, default=20)
     parser.add_argument("--reps", type=int, default=10)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", flush=True)
         sys.exit(1)
-    circuit = load_rung(args.program, args.rung)
+    program = args.program or ("cultivation" if args.kernel == "f32" else "d3_state_probs")
+    rung = args.rung if args.rung is not None else (9 if args.kernel == "f32" else 1)
+    circuit = load_rung(program, rung)
     rows = 1 << args.rows_log2
     x = np.random.default_rng(0).integers(0, 2, size=(rows, circuit.n_params), dtype=np.uint8)
     x = torch.from_numpy(x).to("cuda")
-    print(f"{args.program} rung {args.rung}: G={circuit.num_graphs} P={circuit.n_params}, "
+    print(f"{program} rung {rung} ({args.kernel}): G={circuit.num_graphs} P={circuit.n_params}, "
           f"{rows} rows, {torch.cuda.get_device_name(0)}", flush=True)
-    results = ablate_rung(circuit, x, args.reps)
+    results = (ablate_rung if args.kernel == "f32" else ablate_approx_rung)(circuit, x, args.reps)
     for r in results:
         err = "" if r["err"] is None else f", err {r['err']:.3e}"
         print(f"{r['name']:12s} {r['ms']:9.4f} ms  [{r['oracle']}{err}] -> {'ok' if r['ok'] else 'FAIL'}")
-    print(json.dumps({"program": args.program, "rung": args.rung, "rows": rows, "variants": results}))
+    print(json.dumps({"kernel": args.kernel, "program": program, "rung": rung, "rows": rows,
+                      "variants": results}))
     if not all(r["ok"] for r in results):
         sys.exit(1)
 

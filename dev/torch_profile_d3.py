@@ -1,9 +1,11 @@
 """Where the time of d3 distillation sampling goes on a CUDA card (tsim_tpu_torch),
 or that of 2-check cultivation (``--program cultivation``, in exact mode with
-``--evaluation exact``, postselected in f32 mode with ``--postselected``).
+``--evaluation exact``, postselected in f32 mode with ``--postselected``), or
+that of 1-check cultivation (``--program cultivation1``, the model's default,
+whose ladder is eight launches of the small f32 kernel and one of the wide).
 
     python3 dev/torch_profile_d3.py [--batch 1048576] [--batches 4] [--out build/profile_d3]
-                                    [--program d3|cultivation] [--evaluation f32|exact]
+                                    [--program d3|cultivation|cultivation1] [--evaluation f32|exact]
                                     [--postselected]
 
 1. Stage split of the sampler's own batch step (``_sample_batch``) on the
@@ -79,7 +81,7 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=1 << 20)
     parser.add_argument("--batches", type=int, default=4)
     parser.add_argument("--out", default="build/profile_d3")
-    parser.add_argument("--program", choices=("d3", "cultivation"), default="d3")
+    parser.add_argument("--program", choices=("d3", "cultivation", "cultivation1"), default="d3")
     parser.add_argument("--evaluation", choices=("f32", "exact"), default="f32")
     parser.add_argument("--postselected", action="store_true")
     args = parser.parse_args()
@@ -96,6 +98,8 @@ def main() -> None:
 
     if args.postselected or args.program == "cultivation":
         circuit = cultivation_d3(p=0.001, checks=2)
+    elif args.program == "cultivation1":
+        circuit = cultivation_d3(p=0.001, checks=1)
     else:
         circuit = distillation_d3(p=0.05)
     sampler = circuit.compile_detector_sampler(seed=0, device="cuda", evaluation=args.evaluation)

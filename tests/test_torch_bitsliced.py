@@ -54,6 +54,15 @@ WIDE_RUNGS = (
 )
 SEEDED_PARAMS = (7, 33, 64, 130, 200)
 
+# (program, rung) of every rung that takes the small kernels: the small f32
+# kernel deals the same lists out a thread a mask.
+SMALL_RUNGS = (
+    [("d3", i) for i in range(3)]
+    + [("d3_state_probs", 0)]
+    + [("cultivation", i) for i in range(2)]
+    + [("cultivation_checks1", i) for i in range(8)]
+)
+
 
 @pytest.fixture(scope="module")
 def programs():
@@ -199,6 +208,38 @@ def test_lists_name_the_set_bits_of_committed_rungs(programs, program, rung):
         _check_lists(f32)
         for name, seg in _lists_of(f32).items():  # one function builds both: the same lists in both buffers
             np.testing.assert_array_equal(seg, _lists_of(exact)[name])
+
+
+@pytest.mark.parametrize("program,rung", SMALL_RUNGS, ids=[f"{p}[{r}]" for p, r in SMALL_RUNGS])
+def test_lists_name_the_set_bits_of_small_rungs(programs, program, rung):
+    """The small f32 kernel reads the same lists, a thread a (row, graph)
+    mask: they name the set bits on every rung under 24 graphs too, and the
+    plain front end gives the parities of ``x @ params mod 2`` there."""
+    csg = programs[program][rung]
+    assert kernel.layout(csg.num_graphs) == "small"
+    _check_lists(ExactTables(csg))
+    if program != "d3_state_probs":
+        _check_lists(SampleTables(csg))
+    _check_front_end(csg, 65, seed=rung)
+
+
+@pytest.mark.parametrize("n_params", [160, 300])
+def test_small_rungs_of_many_parameters(n_params):
+    """Small rungs past four packed words, with one- and two-byte indices."""
+    rung = _sparse_rung(n_params, seed=n_params, num_graphs=8)
+    assert kernel.configuration(rung.num_graphs, -(-n_params // 32)) == "small"
+    _check_lists(SampleTables(rung))
+    _check_front_end(rung, 129, seed=3)
+
+
+def test_term_free_rung_has_an_empty_stream(programs):
+    """Rung 0 of every program is one graph without terms: no list rows, so
+    the small kernel builds no planes for it."""
+    for name, rungs in programs.items():
+        tables = ExactTables(rungs[0])
+        assert tables.dims == (0, 0, 0, 0) and tables.list_words == 0, name
+        lists = _lists_of(tables)
+        assert lists["bs_base"].tolist() == [0, 0, 0] and lists["bs_meta"].shape == (0, 1)
 
 
 @pytest.mark.parametrize("n_params", SEEDED_PARAMS)
@@ -383,7 +424,7 @@ def _imported_modules(path: Path) -> set:
 def test_the_port_imports_neither_jax_nor_tsim_tpu():
     files = [*sorted((REPO / "tsim_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
              REPO / "dev" / "torch_kernel_ablate.py", REPO / "dev" / "torch_profile_d3.py",
-             REPO / "dev" / "torch_walk_variant.py"]
+             REPO / "dev" / "torch_walk_variant.py", REPO / "dev" / "torch_time_rungs.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):

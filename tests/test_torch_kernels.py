@@ -1,7 +1,7 @@
 """The CUDA kernels' wrappers, and each kernel against its plain version:
-the f32 sampling kernels (``sample_eval.cu``: packed K1/K2, per-term
+the f32 sampling kernels (``sample_eval.cu``: bit-sliced K1/K2, per-term
 K3a/K3b, the self-test K4 and the stage ablation K8) and the exact kernels
-(``exact_eval.cu``).
+(``exact_eval.cu``, K6's stage split included).
 
 This file imports no JAX, so the card's tests run on a machine without it:
 
@@ -115,10 +115,10 @@ def _f32_rungs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 7, 4097])
 def test_per_term_kernels_match_plain_version(cuda, batch):
-    """K3a/K3b on every rung, the bit-sliced K1 on every wide rung and K2
-    where a row fits four words, against the plain version, within rtol 1e-5 of the row's mass (sum over graphs
-    of |product|): cultivation's graph sums cancel to near zero on most
-    rows, so f32 rounding is only small against the mass."""
+    """K3a/K3b and the bit-sliced K1/K2 on every rung, rows of five packed
+    words included, against the plain version, within rtol 1e-5 of the row's
+    mass (sum over graphs of |product|): cultivation's graph sums cancel to
+    near zero on most rows, so f32 rounding is only small against the mass."""
     kernel.reset_launch_counts()
     for i, (name, csg) in enumerate(_f32_rungs()):
         tables = SampleTables(csg).to(cuda)
@@ -126,7 +126,7 @@ def test_per_term_kernels_match_plain_version(cuda, batch):
         want, mass = sample_product_sum_reference(tables, x, with_mass=True)
         scale = mass[:, None]
         layout = kernel.layout(tables.num_graphs)
-        for config in [f"per_term_{layout}"] + ([layout] if layout == "wide" or tables.words <= 4 else []):
+        for config in (f"per_term_{layout}", layout):
             got = kernel.launch(tables, x, config)
             torch.cuda.synchronize()
             assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (name, config, batch)
@@ -145,6 +145,35 @@ def test_wide_kernel_equals_per_term_wide(cuda, batch):
         tables = SampleTables(csg).to(cuda)
         x = _rows(tables.n_params, batch, seed=i, device=cuda)
         assert torch.equal(kernel.launch(tables, x, "wide"), kernel.launch(tables, x, "per_term_wide")), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 129, 4097])
+def test_small_kernel_equals_per_term_small(cuda, batch):
+    """The bit-sliced K2 and the popcount K3b walk the graphs in the same
+    order through the same f32 factor code: equal bit for bit on every small
+    rung, the term-free 1-graph rungs and the seeded one over 160 parameters
+    included, whole blocks of 128 shots and ragged ones."""
+    seen = 0
+    for i, (name, csg) in enumerate(_f32_rungs()):
+        if kernel.layout(csg.num_graphs) != "small":
+            continue
+        tables = SampleTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        assert torch.equal(kernel.launch(tables, x, "small"), kernel.launch(tables, x, "per_term_small")), name
+        seen += 1
+    assert seen == 3 + 8 + 2 + 1
+
+
+@pytest.mark.cuda
+def test_small_kernel_takes_rows_of_two_byte_indices(cuda):
+    """From 256 parameters on a list index takes two bytes."""
+    tables = SampleTables(synthetic_rung(5, 8, 300, (6, 4, 4, 2))).to(cuda)
+    x = _rows(300, 257, seed=5, device=cuda)
+    got = kernel.launch(tables, x, "small")
+    want, mass = sample_product_sum_reference(tables, x, with_mass=True)
+    assert ((got - want).abs() <= ATOL + RTOL * mass[:, None]).all()
+    assert torch.equal(got, kernel.launch(tables, x, "per_term_small"))
 
 
 @pytest.mark.cuda
@@ -201,7 +230,7 @@ def test_exact_rungs_reach_all_four_kernels(exact_rungs):
         f"{exact_kernel.configuration(c.num_graphs)}"
         for _, c in exact_rungs
     }
-    assert reached == set(exact_kernel.launch_counts)
+    assert reached == set(exact_kernel.KERNELS)
 
 
 def test_exact_wrappers_refuse_cpu_tensors(exact_rungs):
@@ -230,7 +259,7 @@ def test_exact_kernels_match_plain_version(exact_rungs, cuda, batch):
             assert ((got - want).abs() <= ATOL + RTOL * want).all(), (name, batch)
         else:
             assert torch.equal(got, want), (name, batch)
-    assert min(exact_kernel.launch_counts.values()) > 0
+    assert min(exact_kernel.launch_counts[k] for k in exact_kernel.KERNELS) > 0
 
 
 @pytest.mark.cuda
@@ -258,7 +287,45 @@ def test_exact_kernels_take_rows_over_128_parameters(cuda, n_params, batch):
                 assert ((got - want).abs() <= ATOL + RTOL * want.max()).all(), (graphs, batch)
             else:
                 assert torch.equal(got, want), (graphs, batch)
-    assert min(exact_kernel.launch_counts.values()) > 0
+    assert min(exact_kernel.launch_counts[k] for k in exact_kernel.KERNELS) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 129, 4097])
+def test_approximate_kernels_match_plain_version_on_sparse_rows(exact_rungs, cuda, batch):
+    """On uniform rows almost every product of the 172-graph rung vanishes;
+    on sparse rows (a bit in twenty set, as the noise is) few do. Both within
+    rtol 1e-5 of the row's magnitude of the plain exact evaluator."""
+    seen = 0
+    for i, (name, csg) in enumerate(exact_rungs):
+        tables = ExactTables(csg).to(cuda)
+        if not tables.approximate:
+            continue
+        sparse = np.random.default_rng(i).random((batch, tables.n_params)) < 0.05
+        x = torch.from_numpy(sparse.astype(np.uint8)).to(cuda)
+        got = evaluate_abs_exact(tables, x)
+        want = evaluate_abs(tables.circuit(), x)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and ((got - want).abs() <= ATOL + RTOL * want).all(), (name, batch)
+        seen += 1
+    assert seen == 6
+
+
+@pytest.mark.cuda
+def test_approx_ablation_oracles(exact_rungs, cuda):
+    """K6's stage split on the 172-graph state-probability rung: "full" is K6
+    bit for bit, the emptied variants are finite."""
+    from dev.torch_kernel_ablate import ablate_approx_rung
+
+    circuit = dict(exact_rungs)["d3_state_probs[1]"]
+    exact_kernel.reset_launch_counts()
+    results = ablate_approx_rung(circuit, _rows(circuit.n_params, 4097, 3, cuda), reps=1)
+    assert [r["name"] for r in results] == list(exact_kernel.APPROX_ABLATION_VARIANTS)
+    assert all(r["ok"] for r in results), results
+    assert results[-1]["err"] == 0.0
+    assert exact_kernel.launch_counts["approx_ablate"] == 3 * 3  # check, warm-up and one timed call each
+    with pytest.raises(ValueError, match="wide"):
+        exact_kernel.ablate_approx(ExactTables(dict(exact_rungs)["d3[2]"]).to(cuda), _rows(8, 4, 0, cuda), "full")
 
 
 @pytest.mark.cuda

@@ -31,7 +31,7 @@ from dev.export_torch_program import compile_cultivation, compile_d3
 from tests.test_torch_sample_eval import _SYNTHETIC
 from tsim_tpu_torch.compile import sample_eval
 from tsim_tpu_torch.compile.exact_tables import ExactTables
-from tsim_tpu_torch.compile.sample_tables import MAX_WORDS, SampleTables
+from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.kernels import sample_eval as kernel
 from tsim_tpu_torch.program_io import rung_from_reference
@@ -129,15 +129,18 @@ def test_cultivation_checks1_rungs(rungs):
 
 
 def test_wide_rows_take_the_per_term_configuration(rungs):
-    """Past MAX_WORDS packed words the f32 tables build (no cap) and take the
-    per-term configuration even with the packed kernels on; exact tables
-    have no cap either."""
+    """Rows past four packed words take the per-term configuration only where
+    the caller asks for it: the bit-sliced kernels index their planes by
+    parameter, so the f32 tables build (no cap) and keep "wide" or "small"
+    with the packed kernels on; exact tables have no cap either."""
     port = rung_from_reference(rungs["p160"])
     tables = SampleTables(port)
-    assert tables.words == 5 > MAX_WORDS and tables.num_graphs == 30
+    assert tables.words == 5 and tables.num_graphs == 30
     assert kernel.use_packed()
-    assert kernel.configuration(tables.num_graphs, tables.words) == "per_term_wide"
-    assert kernel.configuration(8, 5) == "per_term_small"
+    assert kernel.configuration(tables.num_graphs, tables.words) == "wide"
+    assert kernel.configuration(8, 5) == "small"
+    assert kernel.configuration(tables.num_graphs, tables.words, per_term=True) == "per_term_wide"
+    assert kernel.configuration(8, 5, per_term=True) == "per_term_small"
     exact = ExactTables(port)
     assert exact.words == 5 and exact_kernel.configuration(exact.num_graphs) == "wide"
 
@@ -155,16 +158,15 @@ def test_configuration_follows_the_switch(monkeypatch):
     monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "1")
     assert [kernel.configuration(g, w) for g, w in table] == packed
     assert [kernel.configuration(g, w, per_term=True) for g, w in table] == [f"per_term_{c}" for c in packed]
-    assert kernel.configuration(8, 5, per_term=False) == "per_term_small"  # long rows stay per-term
+    assert kernel.configuration(8, 5, per_term=False) == "small"  # long rows take the bit-sliced kernels too
 
 
 def test_launch_refuses_long_rows_on_packed_kernels():
     tables = SampleTables(sample_eval.synthetic_rung(0, 30, WIDE_PARAMS))
     x = torch.zeros((4, WIDE_PARAMS), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="packed kernels"):
-        kernel.launch(tables, x, "small")
-    with pytest.raises(ValueError, match="CUDA"):  # the bit-sliced wide kernel takes any row
-        kernel.launch(tables, x, "wide")
+    for config in ("small", "wide"):  # the bit-sliced kernels take any row: only the device is refused
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel.launch(tables, x, config)
     with pytest.raises(ValueError, match="configuration"):
         kernel.launch(tables, x, "per_term")
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,6 +1,6 @@
 """Bit lists: the set parameters of every parity mask of a rung, for the
-bit-sliced front end of the wide kernels (``kernels/csrc/bitsliced.cuh``),
-and that front end's plain numpy version.
+bit-sliced front end of the wide kernels and the small f32 kernel
+(``kernels/csrc/bitsliced.cuh``), and that front end's plain numpy version.
 
 A parity is ``x . mask mod 2``. The wide kernels take 128 shots a block, in
 four groups of 32, turn their rows into bit planes (plane ``p`` holds
@@ -207,7 +207,7 @@ def unpack_shots(words: np.ndarray, batch: int) -> np.ndarray:
     """(blocks, ...) uint32 words -> (batch, ...) 0/1: bit s of block j is shot 32 j + s."""
     shifts = np.arange(SHOTS, dtype=np.uint32).reshape((1, SHOTS) + (1,) * (words.ndim - 1))
     bits = (words[:, None] >> shifts) & np.uint32(1)
-    return bits.reshape((-1,) + words.shape[1:])[:batch].astype(np.uint8)
+    return bits.reshape((words.shape[0] * SHOTS,) + words.shape[1:])[:batch].astype(np.uint8)
 
 
 def ripple_add(tot: list, w: np.ndarray, c: np.ndarray) -> None:
@@ -223,7 +223,11 @@ def ripple_add(tot: list, w: np.ndarray, c: np.ndarray) -> None:
 
 
 def sliced_front_end(lists: dict, dims: tuple, x: np.ndarray) -> dict:
-    """What the kernels' integer stage computes, in numpy, unpacked per shot.
+    """What the kernels' integer stage computes, in numpy, unpacked per shot:
+    a parity word per list row, then the half-pi rows folded into the total's
+    bit planes and the pi-product rows into the sign. The wide kernels do that
+    a thread a graph, the small f32 kernel a thread a row and then a thread a
+    word.
 
     ``lists`` holds the numpy list segments, ``dims = (T1, T2, T3, T4)``,
     ``x`` (B, P) 0/1 rows. Returns per-shot arrays: ``node`` (B, T1, G),

@@ -10,7 +10,10 @@ the same segments, in the order of :func:`exact_table_layout`. Parity
 parameters are packed into ``W = ceil(P / 32)`` words per (term, graph)
 with ``sample_tables.pack_words``, any number of them (the plain reader and
 the small kernels read these), and listed by set parameter for the
-bit-sliced wide kernels (``compile/bit_lists.py``).
+bit-sliced wide kernels (``compile/bit_lists.py``). A rung with approximate
+floatfactors also carries the closed-form tables of its node-phase family
+(``compile/closed_form.py``), which ``approx_wide`` reads in place of
+``np_phases``.
 
 The TPU sorts graphs into buckets by live term count, because it pads
 each tile to its largest graph. Here each graph keeps its own counts:
@@ -35,15 +38,22 @@ from ..program_io import (
     ScalarPrefactor,
 )
 from .bit_lists import AHEAD, bit_list_layout, build_bit_lists, flatten_segment, view_segment
+from .closed_form import build_closed_form, closed_form_layout
 from .sample_tables import num_words, pack_words, unpack_words
 
 
-def exact_table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_words: int = 0) -> list:
+def exact_table_layout(
+    t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_words: int = 0,
+    closed_form: tuple | None = None,
+) -> list:
     """Segments of the flat buffer: ``(name, shape, kind)`` in storage order.
 
-    ``kind`` is ``"i32"`` or ``"words"``; the bit lists, a stream of
-    ``list_words`` words a graph, come last. The CUDA kernel's
-    ``make_tables`` walks the same order; the two must change together.
+    ``kind`` is ``"i32"``, ``"f32"`` or ``"words"``; an approximate rung's
+    closed-form segments (``closed_form = (tc, bias)``, see
+    ``closed_form.closed_form_layout``) follow the integer tables, and the bit
+    lists, a stream of ``list_words`` words a graph, come last. The CUDA
+    kernel's ``make_tables`` walks the same order; the two must change
+    together.
     """
     return [
         ("np_phases", (t1, g), "i32"),
@@ -65,6 +75,7 @@ def exact_table_layout(t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_
         ("pf_phase", (g,), "i32"),
         ("pf_ff", (4, g), "i32"),
         ("pf_pow", (g,), "i32"),
+        *(closed_form_layout(*closed_form, g) if closed_form else []),
         *bit_list_layout(t1, t2, t3, t4, g, list_words),
     ]
 
@@ -126,8 +137,10 @@ class ExactTables(nn.Module):
     and ``approx`` ((2, G) float32 approximate factors, re then im).
     Plain attributes: ``num_graphs``, ``n_params``, ``words``, the
     per-family term maxima ``dims = (T1, T2, T3, T4)``, ``list_words``
-    (words a graph of the bit lists' stream) and ``approximate`` (the rung has
-    approximate floatfactors).
+    (words a graph of the bit lists' stream), ``approximate`` (the rung has
+    approximate floatfactors) and ``closed_form``: ``(tc, bias)`` of an
+    approximate rung's closed-form tables (the most live node-phase terms a
+    graph has, the largest ``|e|`` a row can reach), None on an exact rung.
     """
 
     def __init__(self, circuit):
@@ -143,6 +156,11 @@ class ExactTables(nn.Module):
             np.shape(circuit.phase_pairs.alpha)[0],
         )
         tables = build_exact_tables(circuit)
+        self.closed_form = None
+        if self.approximate:
+            closed = build_closed_form(circuit)
+            self.closed_form = (closed.pop("tc"), closed.pop("bias"))
+            tables.update(closed)
         self.list_words = tables["bs_words"].shape[0] - AHEAD
         parts = []
         for name, shape, kind in self.layout():
@@ -155,10 +173,12 @@ class ExactTables(nn.Module):
         self.register_buffer("approx", torch.from_numpy(np.ascontiguousarray(approx.T)))
 
     def layout(self) -> list:
-        return exact_table_layout(*self.dims, self.num_graphs, self.words, self.list_words)
+        return exact_table_layout(
+            *self.dims, self.num_graphs, self.words, self.list_words, self.closed_form
+        )
 
     def views(self) -> dict:
-        """Named int32 tensor views into ``flat``."""
+        """Named tensor views into ``flat`` (float segments reinterpreted as f32)."""
         out, off = {}, 0
         for name, shape, kind in self.layout():
             n = int(np.prod(shape))

@@ -29,8 +29,6 @@ from torch import nn
 
 from .bit_lists import AHEAD, bit_list_layout, build_bit_lists, flatten_segment, view_segment
 
-MAX_WORDS = 4  # packed words the "small" kernels keep in registers (128 parameters)
-
 _SQRT_HALF = np.float32(0.7071067811865476)
 
 # w^k = exp(i k pi / 4), float32, exact zeros where the value is 0.
@@ -173,8 +171,8 @@ class SampleTables(nn.Module):
     ``words``, the per-family term maxima ``dims = (T1, T2, T3, T4)``,
     ``list_words`` (words a graph of the bit lists' stream), ``bias``,
     ``eligible`` (:func:`sample_eligible`) and ``per_term``: True sends the
-    rung to the per-term kernels, False to the packed ones where its rows
-    fit, None leaves it to ``kernels.sample_eval.use_packed``.
+    rung to the per-term kernels, False to the packed ones, None leaves it to
+    ``kernels.sample_eval.use_packed``.
     """
 
     def __init__(self, circuit, per_term: bool | None = None):

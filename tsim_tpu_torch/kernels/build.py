@@ -114,9 +114,11 @@ def load() -> ctypes.CDLL:
         ]
         lib.tsim_exact_eval.restype = i32
         lib.tsim_approx_eval.argtypes = [
-            vp, i64, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,
+            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,
         ]
         lib.tsim_approx_eval.restype = i32
+        lib.tsim_approx_eval_ablate.argtypes = lib.tsim_approx_eval.argtypes
+        lib.tsim_approx_eval_ablate.restype = i32
         lib.tsim_cuda_error_string.argtypes = [i32]
         lib.tsim_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

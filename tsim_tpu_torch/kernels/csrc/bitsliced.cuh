@@ -1,5 +1,6 @@
 // Bit-sliced parity front end of the wide kernels (sample_eval.cu `wide`,
-// exact_eval.cu `exact_wide` and `approx_wide`).
+// exact_eval.cu `exact_wide` and `approx_wide`); sample_eval.cu `small` uses
+// its planes and lists with a thread a mask (see there).
 //
 // A parity is x . mask mod 2 for a shot's 0/1 parameter row x and a term's
 // parameter mask. The TPU kernels form it as a matrix-unit dot; the first
@@ -139,6 +140,21 @@ __device__ __forceinline__ void entry_xor(Entry& a, const Entry& b) {
   for (int k = 0; k < kGroups; ++k) a.w[k] ^= b.w[k];
 }
 
+// acc ^= the planes that one word of a list names: 4 indices of one byte, or 2
+// of two bytes (IB).
+template <int IB>
+__device__ __forceinline__ void xor_listed(Entry& acc, const Entry* planes, uint32_t e) {
+  if (IB == 1) {
+    entry_xor(acc, planes[e & 255u]);
+    entry_xor(acc, planes[(e >> 8) & 255u]);
+    entry_xor(acc, planes[(e >> 16) & 255u]);
+    entry_xor(acc, planes[e >> 24]);
+  } else {
+    entry_xor(acc, planes[e & 0xffffu]);
+    entry_xor(acc, planes[e >> 16]);
+  }
+}
+
 // Walks graph g's stream row by row, in order. The next kAhead words are
 // always in registers, loaded kAhead words before their use, whatever rows
 // they belong to: rows are a few words long, so a load started at its row's
@@ -187,15 +203,7 @@ struct Walker {
 #pragma unroll
       for (int i = 0; i + 1 < kAhead; ++i) queue[i] = queue[i + 1];
       queue[kAhead - 1] = __ldg(ahead);
-      if (IB == 1) {
-        entry_xor(acc, planes[e & 255u]);
-        entry_xor(acc, planes[(e >> 8) & 255u]);
-        entry_xor(acc, planes[(e >> 16) & 255u]);
-        entry_xor(acc, planes[e >> 24]);
-      } else {
-        entry_xor(acc, planes[e & 0xffffu]);
-        entry_xor(acc, planes[e >> 16]);
-      }
+      xor_listed<IB>(acc, planes, e);
     }
     meta += bl.G;
     hi = *++end;
@@ -203,17 +211,22 @@ struct Walker {
   }
 };
 
-// tot += c * w mod 8 for every shot: tot is three bit planes, c in [0, 8).
+// (t0, t1, t2) += c * w mod 8 for each of a word's 32 shots: three bit planes
+// of the total, c in [0, 8).
+__device__ __forceinline__ void ripple_add_word(uint32_t& t0, uint32_t& t1, uint32_t& t2, uint32_t w,
+                                                int c) {
+  const uint32_t a0 = (c & 1) ? w : 0u, a1 = (c & 2) ? w : 0u, a2 = (c & 4) ? w : 0u;
+  const uint32_t c0 = t0 & a0;
+  const uint32_t c1 = (t1 & a1) | (c0 & (t1 ^ a1));
+  t0 ^= a0;
+  t1 ^= a1 ^ c0;
+  t2 ^= a2 ^ c1;
+}
+
+// tot += c * w mod 8 for every shot of the block.
 __device__ __forceinline__ void ripple_add(Entry (&tot)[3], const Entry& w, int c) {
 #pragma unroll
-  for (int k = 0; k < kGroups; ++k) {
-    const uint32_t a0 = (c & 1) ? w.w[k] : 0u, a1 = (c & 2) ? w.w[k] : 0u, a2 = (c & 4) ? w.w[k] : 0u;
-    const uint32_t c0 = tot[0].w[k] & a0;
-    const uint32_t c1 = (tot[1].w[k] & a1) | (c0 & (tot[1].w[k] ^ a1));
-    tot[0].w[k] ^= a0;
-    tot[1].w[k] ^= a1 ^ c0;
-    tot[2].w[k] ^= a2 ^ c1;
-  }
+  for (int k = 0; k < kGroups; ++k) ripple_add_word(tot[0].w[k], tot[1].w[k], tot[2].w[k], w.w[k], c);
 }
 
 // The integer stage of graph g under stage mask M, IB bytes an index, with

@@ -1,7 +1,8 @@
 // Exact evaluator: per shot row and per graph, the exact Z[w] * 2^p product
 // of the four term families and the static prefactor, then a sum over
 // graphs, either exact (integer coefficients and a power, K5/K7a) or in
-// float32 after an approximate complex factor per graph (K6/K7b).
+// float32 after an approximate complex factor per graph (K6/K7b), where the
+// product is formed in closed form and not as integers.
 //
 // Replaces the TPU kernels of tsim_tpu/compile/pallas_evaluate.py:
 //   _kernel_exact    (K5, wide layout)       -> exact_wide
@@ -17,8 +18,8 @@
 // four words and in shared memory beyond (word i of thread t at
 // xs[i * blockDim.x + t], the block shrunk for long rows).
 //
-// The product follows _product_body step for step, so that the int32
-// coefficients grow as they do in tsim_tpu: per node-phase term
+// The exact finisher's product follows _product_body step for step, so that
+// the int32 coefficients grow as they do in tsim_tpu: per node-phase term
 // acc += rot(acc, phase + 4 parity) under the graph's count, then a reduce
 // step (no all-zero guard, even on dead slots); the half-pi rotation by the
 // summed phase; the pi-product sign; per phase-pair term
@@ -29,18 +30,35 @@
 //
 // Exact sums shift to the smaller power (the shift clipped at 30) and then
 // take a reduce step, as the TPU kernel does; an exactly zero summand is
-// skipped, so its drifted power never enters the alignment. The kernels
+// skipped, so its drifted power never enters the alignment. The exact kernels
 // write integers only: the float conversion is the plain version's own
 // torch code (compile/evaluate.py), so magnitudes agree bit for bit.
 //
+// The approximate finisher owes no integer to anyone: its result is a float32
+// sum of per-graph values, held to the plain version within a relative
+// tolerance. It does not carry the product as Z[w] coefficients at all. A
+// node-phase factor 1 + w^k is 0 or a sixteenth root of unity times sqrt 2
+// and c = 2 cos(pi / 8) to small powers, so the family (2761 of the 3631
+// live terms of the 172-graph state-probability rung) is four counts in one
+// packed word per shot and graph (closed_form_add, tables from
+// compile/closed_form.py): an add of a host-made delta where the term's
+// parity is 1. The half-pi rotation, the pi-product sign and the prefactor's
+// w^phase go into the word's phase field. Only the phase pairs, whose factor
+// is not a monomial, stay an exact Z[w] product from 1; then one conversion
+// per graph, through two small tables in shared memory.
+//
 // What bounds the wide kernels on an H100: int32 instruction throughput in the
 // per-shot stage (about three quarters of exact_wide on 2-check
-// cultivation's 307-graph rung; the integer stage, which forms the parities
-// of a graph for 128 shots at once, is most of the rest). Per shot, graph
-// and term the product takes a few dozen integer operations: rotations are
-// selects and adds, the reduce step a test and four shifts. It reads P bytes
-// per shot; the tables of one rung are a few hundred KB at most and stay in
-// L1/L2.
+// cultivation's 307-graph rung, two thirds of approx_wide on the 172-graph
+// state-probability rung; the integer stage, which forms the parities of a
+// graph for 128 shots at once, is most of the rest). For the exact finisher
+// that is a few dozen integer operations per shot, graph and term: rotations
+// are selects and adds, the reduce step a test and four shifts. For the
+// approximate one it is a bit extract and a multiply-add per shot, graph and
+// live slot, the phase pairs' rotations where a graph has any, and per graph
+// the conversion: a few dozen float operations and two table reads. The
+// kernels read P bytes per shot; the tables of one rung are a few hundred KB
+// at most and stay in L1/L2.
 //
 // What the design does about it. "wide" (G >= 24): a block takes 128 shots
 // and a tile of up to 128 graphs. In the integer stage a thread is a graph
@@ -55,6 +73,10 @@
 // one partial per shot and graph tile, combined in torch. An exact sum has
 // the same value in any order as long as no alignment shift is clipped; the
 // kernels are held to the plain version bit for bit on every exact rung.
+// The approximate finisher walks only as many node-phase slots as the rung's
+// fullest graph has live (dead slots of other graphs add a zero delta), does
+// no work that depends on the data, and so takes the same time on rows
+// whose products mostly vanish as on rows where few do.
 // "small" (G < 24) gives each thread one shot and loops over the graphs; the
 // threads of a warp read the same table entry, which L1 broadcasts.
 //
@@ -71,6 +93,14 @@ constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr int kMaxTile = 128;  // graphs per wide block (its threads)
 constexpr int kSmallThreads = 128;
 constexpr int kDefaultSharedBytes = 48 * 1024;
+
+// Fields of a closed-form word (compile/closed_form.py): the zero count from
+// bit 0, the biased count of c from bit 9, the half powers of two from bit 19,
+// the phase in sixteenths of a turn in the top four bits.
+constexpr int kCountShift = 9, kHalfShift = 19, kPhiShift = 28;
+constexpr uint32_t kZeroMask = 0x1ffu, kCountMask = 0x3ffu, kHalfMask = 0x1ffu;
+constexpr int kMaxBias = 160;  // c^145 already leaves the float32 range; the host refuses such a rung
+constexpr int kMagWords = 2 * (2 * kMaxBias + 1);
 
 // Pointers into the flat table buffer; the segment order matches
 // tsim_tpu_torch/compile/exact_tables.py::exact_table_layout.
@@ -94,13 +124,21 @@ struct Tables {
   const int32_t* pf_phase;
   const int32_t* pf_ff;
   const int32_t* pf_pow;
-  const float* approx;  // (2, G), re then im; null for the exact finisher
+  // The closed-form tables of an approximate rung (compile/closed_form.py);
+  // an exact rung has none.
+  const uint32_t* cf_delta;  // (TC, G): the term's word for parity 1 less that for parity 0
+  const uint32_t* cf_base;   // (G): the parity-0 words summed, the bias, the prefactor's phase
+  const float* cf_pre;       // (2, G): exact floatfactor times approximate factor, re then im
+  const float* cf_unit;      // (16, 2): cos, sin of k pi / 8
+  const float* cf_mag;       // (2 EB + 1, 2): c^(j - EB), and that times sqrt 2
   bitsliced::Lists lists;  // the set parameters of every mask, for the wide kernels
   int G, T1, T2, T3, T4, W;
+  int TC, EB;  // most live node-phase terms of a graph; the bias of the count of c
 };
 
-Tables make_tables(const int32_t* flat, const float* approx, int G, int T1, int T2, int T3,
-                   int T4, int W) {
+// closed: the rung is approximate and its buffer holds the closed-form segments.
+Tables make_tables(const int32_t* flat, bool closed, int G, int T1, int T2, int T3, int T4,
+                   int W, int TC, int EB) {
   const int32_t* p = flat;
   auto take = [&p](long long n) {
     const int32_t* q = p;
@@ -130,7 +168,11 @@ Tables make_tables(const int32_t* flat, const float* approx, int G, int T1, int 
   t.pf_phase = take(G);
   t.pf_ff = take(4LL * G);
   t.pf_pow = take(G);
-  t.approx = approx;
+  t.cf_delta = words(closed ? (long long)TC * G : 0);
+  t.cf_base = words(closed ? G : 0);
+  t.cf_pre = reinterpret_cast<const float*>(take(closed ? 2LL * G : 0));
+  t.cf_unit = reinterpret_cast<const float*>(take(closed ? 32 : 0));
+  t.cf_mag = reinterpret_cast<const float*>(take(closed ? 2LL * (2 * EB + 1) : 0));
   t.lists = bitsliced::make_lists(p, G, T1, T2, T3, T4);
   t.G = G;
   t.T1 = T1;
@@ -138,6 +180,8 @@ Tables make_tables(const int32_t* flat, const float* approx, int G, int T1, int 
   t.T3 = T3;
   t.T4 = T4;
   t.W = W;
+  t.TC = TC;
+  t.EB = EB;
   return t;
 }
 
@@ -288,6 +332,36 @@ struct PopcountParities {
   }
 };
 
+// The phase-pair family of _product_body: v[k] * (1 + w^a + w^b - w^(a+b)) per
+// live term, three rotations of v[k], then a reduce step per slot.
+template <int NS, class Parities>
+__device__ __forceinline__ void pair_terms(const Tables& tb, int g, const Parities& par,
+                                           Zw (&v)[NS]) {
+  const int G = tb.G;
+  int p[NS], q[NS];
+  int r[4], ra[4], rb[4];
+  const int cnt4 = __ldg(tb.qp_cnt + g);
+  for (int t = 0; t < tb.T4; ++t) {
+    if (t < cnt4) {
+      const int i = t * G + g;
+      const int al = __ldg(tb.qa + i), be = __ldg(tb.qb + i);
+      par.pair(t, p, q);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        const int a = (al + 4 * p[k]) & 7;
+        const int b = (be + 4 * q[k]) & 7;
+        rot(v[k].c, a, ra);
+        rot(v[k].c, b, rb);
+        rot(v[k].c, (a + b) & 7, r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[k].c[j] += ra[j] + rb[j] - r[j];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k) reduce_step(v[k]);
+  }
+}
+
 // _product_body for graph g and NS shots: v[k] = the exact product of shot k;
 // `par` gives the shots' parities (PopcountParities, or bitsliced::Column
 // after the integer stage).
@@ -301,8 +375,8 @@ __device__ __forceinline__ void product(const Tables& tb, int g, const Parities&
     v[k].c[1] = v[k].c[2] = v[k].c[3] = 0;
     v[k].p = 0;
   }
-  int p[NS], q[NS];
-  int r[4], ra[4], rb[4];
+  int p[NS];
+  int r[4];
 
   // Node phases: acc *= 1 + w^(phase + 4 parity), i.e. acc + rot(acc).
   const int cnt1 = __ldg(tb.np_cnt + g);
@@ -343,27 +417,7 @@ __device__ __forceinline__ void product(const Tables& tb, int g, const Parities&
     }
   }
 
-  // Phase pairs: acc * (1 + w^a + w^b - w^(a+b)), three rotations of acc.
-  const int cnt4 = __ldg(tb.qp_cnt + g);
-  for (int t = 0; t < tb.T4; ++t) {
-    if (t < cnt4) {
-      const int i = t * G + g;
-      const int al = __ldg(tb.qa + i), be = __ldg(tb.qb + i);
-      par.pair(t, p, q);
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        const int a = (al + 4 * p[k]) & 7;
-        const int b = (be + 4 * q[k]) & 7;
-        rot(v[k].c, a, ra);
-        rot(v[k].c, b, rb);
-        rot(v[k].c, (a + b) & 7, r);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[k].c[j] += ra[j] + rb[j] - r[j];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NS; ++k) reduce_step(v[k]);
-  }
+  pair_terms<NS>(tb, g, par, v);
 
   // Static prefactor: w^phase, the exact floatfactor, 2^power2.
   const int ph = __ldg(tb.pf_phase + g) & 7;
@@ -382,19 +436,90 @@ __device__ __forceinline__ void product(const Tables& tb, int g, const Parities&
   }
 }
 
-// _kernel_approx's per-graph float32 term: (re, im) * 2^p times the graph's
-// approximate complex factor; _zero_power pins an exact zero's power to 0.
-__device__ __forceinline__ void approx_term(const Tables& tb, int g, const Zw& v, float& re,
-                                            float& im) {
-  const float c0 = (float)v.c[0], c1 = (float)v.c[1];
-  const float c2 = (float)v.c[2], c3 = (float)v.c[3];
-  const float r = c0 + (c1 - c3) * kInvSqrt2;
-  const float i = c2 + (c1 + c3) * kInvSqrt2;
-  const float scale = ldexpf(1.0f, is_zero(v) ? 0 : v.p);
-  const float fre = __ldg(tb.approx + g) * scale;
-  const float fim = __ldg(tb.approx + tb.G + g) * scale;
-  re = r * fre - i * fim;
-  im = r * fim + i * fre;
+// m * 2^n as two exact power-of-two factors built from exponent bits, each a
+// normal float32 for n in [-252, 254] (the plain version's exp2_int does the
+// same), so the product rounds only where it leaves the float32 range.
+__device__ __forceinline__ float scale_by_power(float m, int n) {
+  n = max(-252, min(254, n));
+  const int h = n >> 1;
+  return m * __int_as_float((h + 127) << 23) * __int_as_float((n - h + 127) << 23);
+}
+
+// The approximate finisher's per-graph term in closed form, for graph g and NS
+// shots, added to sre[k] and sim[k] (compile/closed_form.py has the algebra
+// and the fields of a word). A node-phase factor 1 + w^k is 0 or a sixteenth
+// root of unity times a product of sqrt 2 and c = 2 cos(pi / 8), so the family
+// is four counts in one word: the graph's base word plus, per live term, the
+// term's delta where the shot's parity is 1. The half-pi rotation and the
+// pi-product sign are added to the word's phase field. The phase pairs stay an
+// exact Z[w] product from 1 (pair_terms). One conversion per graph: the pairs'
+// (re, im) as float32, turned by unit[phi], times mag[e, h odd] * 2^(h / 2 +
+// power) * pre; a graph with a zero factor contributes exactly 0
+// (_zero_power's case). `unit` and `mag` are the tables cf_unit and cf_mag, in
+// shared or global memory. M below kAllStages (the stage split of
+// tsim_approx_eval_ablate) leaves the factors out: the prefactor alone, plus
+// the parities formed without factors so that the compiler keeps them.
+template <unsigned M, int NS, class Parities>
+__device__ __forceinline__ void closed_form_add(const Tables& tb, int g, const Parities& par,
+                                                const float* unit, const float* mag,
+                                                float (&sre)[NS], float (&sim)[NS]) {
+  const int G = tb.G;
+  const float pre_re = __ldg(tb.cf_pre + g), pre_im = __ldg(tb.cf_pre + G + g);
+  const int pw = __ldg(tb.pf_pow + g);
+  if constexpr (M != bitsliced::kAllStages) {
+    const float scale = scale_by_power(1.0f, pw);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      sre[k] += pre_re * scale + (float)par.bare(k);
+      sim[k] += pre_im * scale;
+    }
+    return;
+  }
+  uint32_t acc[NS];
+  int p[NS];
+  const uint32_t base = __ldg(tb.cf_base + g);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) acc[k] = base;
+  for (int t = 0; t < tb.TC; ++t) {
+    const uint32_t delta = __ldg(tb.cf_delta + t * G + g);
+    par.node(t, p);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) acc[k] += (uint32_t)p[k] * delta;
+  }
+  if (tb.T2) {
+    par.halfpi(p);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) acc[k] += (uint32_t)(p[k] & 7) << (kPhiShift + 1);
+  }
+  if (tb.T3) {
+    par.sign(p);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) acc[k] += (uint32_t)p[k] << (kPhiShift + 3);
+  }
+
+  Zw v[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) v[k] = Zw{{1, 0, 0, 0}, 0};
+  pair_terms<NS>(tb, g, par, v);
+
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const uint32_t a = acc[k];
+    const bool vanishes = (a & kZeroMask) != 0 || is_zero(v[k]);
+    const float c0 = (float)v[k].c[0], c1 = (float)v[k].c[1];
+    const float c2 = (float)v[k].c[2], c3 = (float)v[k].c[3];
+    const float r = c0 + (c1 - c3) * kInvSqrt2;
+    const float i = c2 + (c1 + c3) * kInvSqrt2;
+    const int h = (int)((a >> kHalfShift) & kHalfMask);
+    const float m = mag[((a >> (kCountShift - 1)) & (kCountMask << 1)) | (uint32_t)(h & 1)];
+    const float scale = scale_by_power(m, vanishes ? 0 : (h >> 1) + v[k].p + pw);
+    const uint32_t phi = a >> kPhiShift;
+    const float ur = unit[2 * phi], ui = unit[2 * phi + 1];
+    const float ar = r * ur - i * ui, ai = r * ui + i * ur;
+    const float fre = pre_re * scale, fim = pre_im * scale;
+    sre[k] += vanishes ? 0.0f : ar * fre - ai * fim;
+    sim[k] += vanishes ? 0.0f : ar * fim + ai * fre;
+  }
 }
 
 // K5: block = 128 shots (four groups of 32) x one tile of blockDim.x (a
@@ -451,13 +576,16 @@ __global__ void __launch_bounds__(kMaxTile)
   }
 }
 
-// K6: as K5, with the float32 finisher; writes out[tile][b][re, im].
-template <int IB>
+// K6: K5's block shape and integer stage with the closed-form float32
+// finisher; the tables cf_unit and cf_mag are copied to shared memory first.
+// Writes out[tile][b][re, im]. M below kAllStages: the stage split.
+template <unsigned M, int IB>
 __global__ void __launch_bounds__(kMaxTile)
     approx_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                 float* __restrict__ out) {
   constexpr int NG = bitsliced::kGroups, NS = bitsliced::kShots;
   __shared__ float red[kMaxTile / 32][NS][2];
+  __shared__ float unit[32], mag[kMagWords];
   extern __shared__ bitsliced::Entry bs_dyn[];
   const long long b0 = (long long)blockIdx.x * NS;
   const int tid = threadIdx.x, stride = blockDim.x, tile = blockIdx.y;
@@ -466,10 +594,11 @@ __global__ void __launch_bounds__(kMaxTile)
   const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
   bitsliced::Entry* columns = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
   bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
+  for (int i = tid; i < 32; i += stride) unit[i] = __ldg(tb.cf_unit + i);
+  for (int i = tid; i < 2 * (2 * tb.EB + 1); i += stride) mag[i] = __ldg(tb.cf_mag + i);
   __syncthreads();
   if (g0 + tid < tb.G)
-    bitsliced::integer_stage<bitsliced::kAllStages, IB>(tb.lists, g0 + tid, bs_dyn, base,
-                                                        columns + tid, stride);
+    bitsliced::integer_stage<M, IB>(tb.lists, g0 + tid, bs_dyn, base, columns + tid, stride);
   __syncthreads();
 
   float sre[NG], sim[NG];
@@ -477,16 +606,8 @@ __global__ void __launch_bounds__(kMaxTile)
   for (int k = 0; k < NG; ++k) sre[k] = sim[k] = 0.0f;
   const int n = min(stride, tb.G - g0);
   for (int j = warp; j < n; j += warps) {
-    Zw v[NG];
     const bitsliced::Column par{columns + j, stride, tb.T1, tb.T4, lane};
-    product<NG>(tb, g0 + j, par, v);
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      float re, im;
-      approx_term(tb, g0 + j, v[k], re, im);
-      sre[k] += re;
-      sim[k] += im;
-    }
+    closed_form_add<M, NG>(tb, g0 + j, par, unit, mag, sre, sim);
   }
 #pragma unroll
   for (int k = 0; k < NG; ++k) {
@@ -526,7 +647,8 @@ __global__ void __launch_bounds__(kSmallThreads)
   out_p[b] = is_zero(acc) ? 0 : acc.p;
 }
 
-// K7b: one thread per shot, float32 sum over all graphs; out[b][re, im].
+// K7b: one thread per shot, float32 sum over all graphs of the closed-form
+// term, its two small tables read from global memory; out[b][re, im].
 template <int W>
 __global__ void __launch_bounds__(kSmallThreads)
     approx_small(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
@@ -535,18 +657,13 @@ __global__ void __launch_bounds__(kSmallThreads)
   if (b >= B) return;
   Row<W> row;
   row.load(x + b * P, P, tb.W);
-  float sre = 0.0f, sim = 0.0f;
+  float sre[1] = {0.0f}, sim[1] = {0.0f};
   for (int g = 0; g < tb.G; ++g) {
-    Zw v[1];
     const PopcountParities<Row<W>> par{tb, row, g};
-    product<1>(tb, g, par, v);
-    float re, im;
-    approx_term(tb, g, v[0], re, im);
-    sre += re;
-    sim += im;
+    closed_form_add<bitsliced::kAllStages, 1>(tb, g, par, tb.cf_unit, tb.cf_mag, sre, sim);
   }
-  out[b * 2] = sre;
-  out[b * 2 + 1] = sim;
+  out[b * 2] = sre[0];
+  out[b * 2 + 1] = sim[0];
 }
 
 // A block's static and dynamic shared memory together may exceed the
@@ -562,19 +679,34 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 }
 
 template <int IB>
-cudaError_t launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, int tile,
-                        int32_t* out_c, int32_t* out_p, float* out_f, cudaStream_t stream) {
+cudaError_t launch_exact_wide(const uint8_t* x, long long B, int P, const Tables& tb, int tile,
+                              int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
   const dim3 grid((unsigned)((B + bitsliced::kShots - 1) / bitsliced::kShots),
                   (unsigned)((tb.G + tile - 1) / tile));
   const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
-  const cudaError_t err =
-      out_f ? allow_shared(approx_wide<IB>, bytes) : allow_shared(exact_wide<IB>, bytes);
+  const cudaError_t err = allow_shared(exact_wide<IB>, bytes);
   if (err != cudaSuccess) return err;
-  if (out_f)
-    approx_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out_f);
-  else
-    exact_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out_c, out_p);
+  exact_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out_c, out_p);
   return cudaSuccess;
+}
+
+template <unsigned M, int IB>
+cudaError_t launch_approx_wide_as(const uint8_t* x, long long B, int P, const Tables& tb, int tile,
+                                  float* out, cudaStream_t stream) {
+  const dim3 grid((unsigned)((B + bitsliced::kShots - 1) / bitsliced::kShots),
+                  (unsigned)((tb.G + tile - 1) / tile));
+  const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
+  const cudaError_t err = allow_shared(approx_wide<M, IB>, bytes);
+  if (err != cudaSuccess) return err;
+  approx_wide<M, IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out);
+  return cudaSuccess;
+}
+
+template <unsigned M>
+cudaError_t launch_approx_wide(const uint8_t* x, long long B, int P, const Tables& tb, int tile,
+                               float* out, cudaStream_t stream) {
+  return bitsliced::index_bytes(P) == 1 ? launch_approx_wide_as<M, 1>(x, B, P, tb, tile, out, stream)
+                                        : launch_approx_wide_as<M, 2>(x, B, P, tb, tile, out, stream);
 }
 
 // W in 1..4: rows in registers; W = 0: rows of tb.W words in shared memory,
@@ -599,35 +731,23 @@ cudaError_t launch_small(const uint8_t* x, long long B, int P, const Tables& tb,
   return cudaSuccess;
 }
 
-int dispatch(const void* x, long long B, int P, const void* flat, const void* approx, int G,
-             int T1, int T2, int T3, int T4, int W, int wide, int tile, void* out_c,
-             void* out_p, void* out_f, void* stream) {
-  if (B <= 0 || G <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  if (wide && (tile < 32 || tile > kMaxTile || (tile & (tile - 1)) != 0))
-    return (int)cudaErrorInvalidValue;
-  const Tables tb = make_tables(static_cast<const int32_t*>(flat),
-                                static_cast<const float*>(approx), G, T1, T2, T3, T4, W);
-  const uint8_t* xp = static_cast<const uint8_t*>(x);
-  int32_t* oc = static_cast<int32_t*>(out_c);
-  int32_t* op = static_cast<int32_t*>(out_p);
-  float* of = static_cast<float*>(out_f);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (wide) {
-    err = bitsliced::index_bytes(P) == 1 ? launch_wide<1>(xp, B, P, tb, tile, oc, op, of, s)
-                                         : launch_wide<2>(xp, B, P, tb, tile, oc, op, of, s);
-  } else {
-    switch (W) {
-      case 1: err = launch_small<1>(xp, B, P, tb, oc, op, of, s); break;
-      case 2: err = launch_small<2>(xp, B, P, tb, oc, op, of, s); break;
-      case 3: err = launch_small<3>(xp, B, P, tb, oc, op, of, s); break;
-      case 4: err = launch_small<4>(xp, B, P, tb, oc, op, of, s); break;
-      default: err = launch_small<0>(xp, B, P, tb, oc, op, of, s); break;
-    }
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+bool valid_shape(long long B, int G, int W, int wide, int tile) {
+  if (B <= 0 || G <= 0 || W <= 0) return false;
+  return !wide || (tile >= 32 && tile <= kMaxTile && (tile & (tile - 1)) == 0);
 }
+
+cudaError_t launch_small_by_words(const uint8_t* x, long long B, int P, const Tables& tb,
+                                  int32_t* out_c, int32_t* out_p, float* out_f, cudaStream_t stream) {
+  switch (tb.W) {
+    case 1: return launch_small<1>(x, B, P, tb, out_c, out_p, out_f, stream);
+    case 2: return launch_small<2>(x, B, P, tb, out_c, out_p, out_f, stream);
+    case 3: return launch_small<3>(x, B, P, tb, out_c, out_p, out_f, stream);
+    case 4: return launch_small<4>(x, B, P, tb, out_c, out_p, out_f, stream);
+    default: return launch_small<0>(x, B, P, tb, out_c, out_p, out_f, stream);
+  }
+}
+
+int finish(cudaError_t err) { return err != cudaSuccess ? (int)err : (int)cudaGetLastError(); }
 
 }  // namespace
 
@@ -639,16 +759,51 @@ int dispatch(const void* x, long long B, int P, const void* flat, const void* ap
 extern "C" int tsim_exact_eval(const void* x, long long B, int P, const void* flat, int G,
                                int T1, int T2, int T3, int T4, int W, int wide, int tile,
                                void* out_c, void* out_p, void* stream) {
-  return dispatch(x, B, P, flat, nullptr, G, T1, T2, T3, T4, W, wide, tile, out_c, out_p,
-                  nullptr, stream);
+  if (!valid_shape(B, G, W, wide, tile)) return (int)cudaErrorInvalidValue;
+  const Tables tb = make_tables(static_cast<const int32_t*>(flat), false, G, T1, T2, T3, T4, W, 0, 0);
+  const uint8_t* xp = static_cast<const uint8_t*>(x);
+  int32_t* oc = static_cast<int32_t*>(out_c);
+  int32_t* op = static_cast<int32_t*>(out_p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide)
+    return finish(bitsliced::index_bytes(P) == 1 ? launch_exact_wide<1>(xp, B, P, tb, tile, oc, op, s)
+                                                 : launch_exact_wide<2>(xp, B, P, tb, tile, oc, op, s));
+  return finish(launch_small_by_words(xp, B, P, tb, oc, op, nullptr, s));
 }
 
-// Approximate finisher (K6 wide, K7b small). approx: (2, G) float32;
-// out: (n_tiles, B, 2) float32.
-extern "C" int tsim_approx_eval(const void* x, long long B, int P, const void* flat,
-                                const void* approx, int G, int T1, int T2, int T3, int T4,
-                                int W, int wide, int tile, void* out, void* stream) {
-  if (approx == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(x, B, P, flat, approx, G, T1, T2, T3, T4, W, wide, tile, nullptr, nullptr,
-                  out, stream);
+// Approximate finisher (K6 wide, K7b small) of a rung whose buffer holds the
+// closed-form segments with TC term slots and bias EB; out: (n_tiles, B, 2)
+// float32.
+extern "C" int tsim_approx_eval(const void* x, long long B, int P, const void* flat, int G,
+                                int T1, int T2, int T3, int T4, int W, int TC, int EB, int wide,
+                                int tile, void* out, void* stream) {
+  if (!valid_shape(B, G, W, wide, tile) || TC < 0 || EB < 0 || EB > kMaxBias)
+    return (int)cudaErrorInvalidValue;
+  const Tables tb = make_tables(static_cast<const int32_t*>(flat), true, G, T1, T2, T3, T4, W, TC, EB);
+  const uint8_t* xp = static_cast<const uint8_t*>(x);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) return finish(launch_approx_wide<bitsliced::kAllStages>(xp, B, P, tb, tile, of, s));
+  return finish(launch_small_by_words(xp, B, P, tb, nullptr, nullptr, of, s));
+}
+
+// K6 with the stages of variant `variant` (0 empty: the prefactor and the
+// graph sum; 1 par-all: the integer stage as well, its parities consumed
+// without factors; 2 full: K6's own code), to split its time by stage.
+extern "C" int tsim_approx_eval_ablate(const void* x, long long B, int P, const void* flat, int G,
+                                       int T1, int T2, int T3, int T4, int W, int TC, int EB,
+                                       int tile, int variant, void* out, void* stream) {
+  using namespace bitsliced;
+  if (!valid_shape(B, G, W, 1, tile) || TC < 0 || EB < 0 || EB > kMaxBias)
+    return (int)cudaErrorInvalidValue;
+  const Tables tb = make_tables(static_cast<const int32_t*>(flat), true, G, T1, T2, T3, T4, W, TC, EB);
+  const uint8_t* xp = static_cast<const uint8_t*>(x);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return finish(launch_approx_wide<0>(xp, B, P, tb, tile, of, s));
+    case 1: return finish(launch_approx_wide<kP1 | kP2 | kP3 | kP4>(xp, B, P, tb, tile, of, s));
+    case 2: return finish(launch_approx_wide<kAllStages>(xp, B, P, tb, tile, of, s));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -14,8 +14,9 @@
 //   the block's rows become bit planes in shared memory and a graph's thread
 //   XORs the planes of each mask's set parameters, walking a host-built
 //   stream of their indices; any number of parameters;
-//   "small" (K2): the popcount parity of (x & w) over the row's W <= 4 packed
-//   words, held in registers, W a template parameter;
+//   "small" (K2): bit-sliced as well, with the same planes and lists, but a
+//   thread a mask: below 24 graphs a thread a graph would leave most of the
+//   block idle; any number of parameters;
 //   "per_term_wide" / "per_term_small" (K3a / K3b): the same popcount with
 //   the packed words staged in shared memory and read in a loop over all W
 //   words for each term, so P has no word cap (only the block's shared
@@ -25,8 +26,8 @@
 // own shots (accumulate_graph) and adds the graphs' products one after the
 // other, so whatever belongs to the graph (its table entries) is the same for
 // the 32 lanes of a warp, which L1 broadcasts, and no sum over graphs crosses
-// lanes. The small configurations give each thread one shot and all graphs.
-// The wide ones give each thread one shot of every 32-shot group of the block
+// lanes. The small configurations give each thread one shot and all graphs,
+// in the same order, so they agree bit for bit. The wide ones give each thread one shot of every 32-shot group of the block
 // and each warp a share of the graphs (warp w the graphs w, w + warps, ... of
 // every chunk of blockDim graphs); the warps' sums are added in order through
 // shared memory, and no sum is carried across blocks. "wide" and
@@ -51,8 +52,12 @@
 // for every graph of the rung, which costs about 2.7 listed parameters per
 // set mask bit on that rung. The kernel reads P bytes and writes 8 bytes per
 // shot, and the tables of one rung are a few hundred KB that stay in L1/L2.
-// The popcount configurations are bound by the popcount unit, which runs
-// at a quarter of the f32 rate.
+// The per-term configurations are bound by the popcount unit, which runs at a
+// quarter of the f32 rate. "small" walked popcounts too, a thread a shot, every
+// lane of a warp repeating the same table loads and address arithmetic; its
+// parities now cost one 16-byte shared-memory load and four XORs per listed
+// parameter per 128 shots, and what is left is the row load, three block
+// barriers and the f32 factors per shot.
 //
 // The wide kernel takes a family/stage mask M as a template parameter (bits
 // kP1..kT4: form family k's parities, apply family k's factors). K1 runs
@@ -89,7 +94,7 @@ using bitsliced::kT4;
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr int kWideThreads = 128;  // upper bound of the wide block
 constexpr int kPerTermGroups = 8;  // 32-shot groups per per-term wide block
-constexpr int kSmallThreads = 128;
+constexpr int kSmallThreads = 128;  // upper bound of the per-term small block
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
 // Configuration codes of tsim_sample_eval (kernels/sample_eval.py::CONFIGURATIONS).
@@ -167,28 +172,6 @@ __device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ row, i
   for (int p = lo; p < hi; ++p) word |= (uint32_t)(row[p] & 1) << (p - lo);
   return word;
 }
-
-// NS shots' rows in W registers each (K2).
-template <int W, int NS>
-struct RegisterRows {
-  uint32_t x[NS][W];
-
-  __device__ __forceinline__ int words() const { return W; }
-
-  // p[k] = parity of popcount(x[k] & w) over the W words at w_src.
-  __device__ __forceinline__ void parities(const uint32_t* w_src, int (&p)[NS]) const {
-    uint32_t w[W];
-#pragma unroll
-    for (int i = 0; i < W; ++i) w[i] = __ldg(w_src + i);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      uint32_t acc = 0;
-#pragma unroll
-      for (int i = 0; i < W; ++i) acc ^= x[k][i] & w[i];
-      p[k] = __popc(acc) & 1;
-    }
-  }
-};
 
 // NS shots' rows staged in shared memory, any number of words (K3a, K3b):
 // word i of shot k is xs[i * stride + k * step].
@@ -471,19 +454,88 @@ __global__ void __launch_bounds__(kWideThreads)
   warps_sum_store(acc_re, acc_im, b0, B, out);
 }
 
-// Small configuration (K2): one thread per shot, looping over all graphs.
-template <int W>
-__global__ void __launch_bounds__(kSmallThreads)
+// One shot's parities of graph g, read from the rows that the small
+// configuration's integer stage left in shared memory: bit `lane` of word
+// `group` of the entry of list row r at rows[r * G + g]; the graph's half-pi
+// total (three bit planes) and pi-product sign follow the R list rows.
+struct ShotRows {
+  const bitsliced::Entry* rows;
+  int G, g, T1, R, pairs, group, lane;  // pairs: the first phase-pair row
+
+  __device__ __forceinline__ int bit(int row) const {
+    return (int)((rows[row * G + g].w[group] >> lane) & 1u);
+  }
+  __device__ __forceinline__ void node(int t, int (&p)[1]) const { p[0] = bit(t); }
+  __device__ __forceinline__ void halfpi(int (&tot)[1]) const {
+    tot[0] = bit(R) | bit(R + 1) << 1 | bit(R + 2) << 2;
+  }
+  __device__ __forceinline__ void sign(int (&sgn)[1]) const { sgn[0] = bit(R + 3); }
+  __device__ __forceinline__ void pair(int t, int (&p)[1], int (&q)[1]) const {
+    p[0] = bit(pairs + 2 * t);
+    q[0] = bit(pairs + 2 * t + 1);
+  }
+  __device__ __forceinline__ int bare(int) const { return 0; }
+};
+
+// Small configuration (K2): block = 128 shots = 128 threads, IB bytes an index
+// of the lists. With fewer than 24 graphs a thread a graph would leave most
+// of the block idle in the integer stage, so there a thread is a mask: the
+// R * G list rows of the rung are dealt out over the block, each thread XORs
+// the planes its row lists for all 128 shots and leaves the parity entry in
+// shared memory. Then a thread is one word of one graph and folds the
+// graph's half-pi rows into the total's three bit planes and its pi-product
+// rows into the sign. In the per-shot stage a thread is a shot and walks all
+// graphs in order through accumulate_graph, as the per-term small
+// configuration does with its popcount parities, so the two agree bit for bit.
+// Dynamic shared memory: the planes and the lists' row table (bitsliced.cuh),
+// then R + 4 entries a graph. A rung without terms (R = 0) builds no planes.
+template <int IB>
+__global__ void __launch_bounds__(bitsliced::kShots)
     sample_eval_small(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                       float* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  using bitsliced::Entry;
+  constexpr int NG = bitsliced::kGroups;
+  extern __shared__ Entry bs_dyn[];
+  const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
+  const int tid = threadIdx.x, G = tb.G;
+  const int R = tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4;
+  const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
+  Entry* rows = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
+  if (R > 0) {
+    bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
+    __syncthreads();
+    for (int i = tid; i < R * G; i += blockDim.x) {
+      const int r = i / G, g = i - r * G;
+      const int lo = base[r], hi = base[r + 1];
+      const uint32_t* word = tb.lists.words + (long long)lo * G + g;
+      Entry acc{};
+      for (int j = lo; j < hi; ++j, word += G) bitsliced::xor_listed<IB>(acc, bs_dyn, __ldg(word));
+      rows[i] = acc;
+    }
+    __syncthreads();
+    const int live2 = base[R + 1], live3 = base[R + 2];
+    for (int i = tid; i < G * NG; i += blockDim.x) {
+      const int g = i / NG, k = i - g * NG;
+      uint32_t t0 = 0u, t1 = 0u, t2 = 0u, sgn = 0u;
+      for (int r = tb.T1; r < tb.T1 + live2; ++r)
+        bitsliced::ripple_add_word(t0, t1, t2, rows[r * G + g].w[k], __ldg(tb.lists.meta + r * G + g) >> 16);
+      for (int r = tb.T1 + tb.T2; r < tb.T1 + tb.T2 + 2 * live3; r += 2) {
+        const uint32_t pc = 0u - (uint32_t)((__ldg(tb.lists.meta + r * G + g) >> 16) & 1);
+        const uint32_t qc = 0u - (uint32_t)((__ldg(tb.lists.meta + (r + 1) * G + g) >> 16) & 1);
+        sgn ^= (rows[r * G + g].w[k] ^ pc) & (rows[(r + 1) * G + g].w[k] ^ qc);
+      }
+      rows[R * G + g].w[k] = t0;
+      rows[(R + 1) * G + g].w[k] = t1;
+      rows[(R + 2) * G + g].w[k] = t2;
+      rows[(R + 3) * G + g].w[k] = sgn;
+    }
+    __syncthreads();
+  }
+  const long long b = b0 + tid;
   if (b >= B) return;
-  RegisterRows<W, 1> rows;
-#pragma unroll
-  for (int i = 0; i < W; ++i) rows.x[0][i] = pack_word(x + b * P, P, i);
   float acc_re[1] = {0.0f}, acc_im[1] = {0.0f};
-  for (int g = 0; g < tb.G; ++g) {
-    const PopcountParities<1, RegisterRows<W, 1>> par{tb, rows, g};
+  for (int g = 0; g < G; ++g) {
+    const ShotRows par{rows, G, g, tb.T1, R, tb.T1 + tb.T2 + 2 * tb.T3, tid >> 5, tid & 31};
     accumulate_graph<kAllStages, 1>(tb, g, par, acc_re, acc_im);
   }
   out[b * 2] = acc_re[0];
@@ -547,11 +599,17 @@ cudaError_t launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, 
                                         : launch_wide_as<M, 2>(x, B, P, tb, out, stream);
 }
 
-template <int W>
-void launch_small(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
-                  cudaStream_t stream) {
-  const long long blocks = (B + kSmallThreads - 1) / kSmallThreads;
-  sample_eval_small<W><<<(unsigned)blocks, kSmallThreads, 0, stream>>>(x, B, P, tb, out);
+template <int IB>
+cudaError_t launch_small_as(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
+                            cudaStream_t stream) {
+  const int R = tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4;
+  const size_t entries = bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4) + (size_t)(R + 4) * tb.G;
+  const size_t bytes = R > 0 ? sizeof(bitsliced::Entry) * entries : 0;
+  const cudaError_t err = allow_shared(sample_eval_small<IB>, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
+  sample_eval_small<IB><<<(unsigned)blocks, bitsliced::kShots, bytes, stream>>>(x, B, P, tb, out);
+  return cudaSuccess;
 }
 
 cudaError_t launch_per_term(const uint8_t* x, long long B, int P, const Tables& tb, int config,
@@ -594,8 +652,8 @@ cudaError_t launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb
 }  // namespace
 
 // x: (B, P) uint8 rows; flat: the rung's table buffer; out: (B, 2) float32.
-// config: 0 small (W <= 4), 1 wide (any W), 2 per-term small, 3 per-term wide
-// (any W). Returns the first CUDA error of the launch (0 on success); the
+// config: 0 small, 1 wide, 2 per-term small, 3 per-term wide, each for any
+// number W of packed words a row. Returns the first CUDA error of the launch (0 on success); the
 // caller raises on anything else.
 extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* flat, int G,
                                 int T1, int T2, int T3, int T4, int W, int config, void* out,
@@ -611,13 +669,8 @@ extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* f
     case kPerTermSmall:
     case kPerTermWide: err = launch_per_term(xp, B, P, tb, config, op, s); break;
     case kSmall:
-      switch (W) {
-        case 1: launch_small<1>(xp, B, P, tb, op, s); break;
-        case 2: launch_small<2>(xp, B, P, tb, op, s); break;
-        case 3: launch_small<3>(xp, B, P, tb, op, s); break;
-        case 4: launch_small<4>(xp, B, P, tb, op, s); break;
-        default: return (int)cudaErrorInvalidValue;
-      }
+      err = bitsliced::index_bytes(P) == 1 ? launch_small_as<1>(xp, B, P, tb, op, s)
+                                           : launch_small_as<2>(xp, B, P, tb, op, s);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -8,7 +8,8 @@ launch. There is no fallback: the plain version
 
 Kernels by name (and the TPU kernel each replaces):
 ``exact_wide`` (K5), ``approx_wide`` (K6), ``exact_small`` (K7a),
-``approx_small`` (K7b).
+``approx_small`` (K7b); ``approx_ablate`` counts the launches of K6's stage
+split (``dev/torch_kernel_ablate.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,15 @@ from .sample_eval import layout as configuration
 
 MAX_TILE = 128  # graphs per block of the wide configuration
 
+KERNELS = ("exact_wide", "approx_wide", "exact_small", "approx_small")
+
+# Variants of tsim_approx_eval_ablate, by position: the prefactor and the graph
+# sum alone; with the integer stage, its parities consumed without factors;
+# every stage (K6's own code).
+APPROX_ABLATION_VARIANTS = ("empty", "par-all", "full")
+
 # Launches per kernel, counted where each launch succeeds.
-launch_counts = {"exact_wide": 0, "approx_wide": 0, "exact_small": 0, "approx_small": 0}
+launch_counts = {name: 0 for name in (*KERNELS, "approx_ablate")}
 
 
 def reset_launch_counts() -> None:
@@ -102,27 +110,44 @@ def exact_partials(tables, x: torch.Tensor):
     return out_c, out_p
 
 
-def approx_partials(tables, x: torch.Tensor) -> torch.Tensor:
-    """(B, P) uint8 rows on a CUDA device -> (n_tiles, B, 2) float32 (re, im)
-    per-tile graph sums, for a rung with approximate floatfactors (K6 wide,
-    K7b small)."""
+def _approx_call(tables, x: torch.Tensor, variant: int | None) -> torch.Tensor:
+    """One launch of the approximate finisher in the rung's configuration, or,
+    with ``variant``, of that variant of the wide kernel's stage split."""
     _check(tables, x)
     if not tables.approximate:
         raise ValueError("this rung has no approximate floatfactors; use exact_partials")
     G, B = tables.num_graphs, x.shape[0]
+    config = configuration(G)
+    if variant is not None and config != "wide":
+        raise ValueError(f"the stage split is of the wide kernel; {G} graphs take the small one")
     out = torch.empty((num_tiles(G), B, 2), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
     lib = build.load()
-    config = configuration(G)
-    t1, t2, t3, t4 = tables.dims
+    shape = (*tables.dims, tables.words, *tables.closed_form)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tsim_approx_eval(
-            ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
-            ctypes.c_void_p(tables.flat.data_ptr()), ctypes.c_void_p(tables.approx.data_ptr()),
-            G, t1, t2, t3, t4, tables.words, int(config == "wide"), graph_tile(G),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream),
-        )
-    _launch(f"approx_{config}", err, lib, tables)
+        head = (ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
+                ctypes.c_void_p(tables.flat.data_ptr()), G, *shape)
+        tail = (ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+        if variant is None:
+            err = lib.tsim_approx_eval(*head, int(config == "wide"), graph_tile(G), *tail)
+        else:
+            err = lib.tsim_approx_eval_ablate(*head, graph_tile(G), variant, *tail)
+    _launch("approx_ablate" if variant is not None else f"approx_{config}", err, lib, tables)
     return out
+
+
+def approx_partials(tables, x: torch.Tensor) -> torch.Tensor:
+    """(B, P) uint8 rows on a CUDA device -> (n_tiles, B, 2) float32 (re, im)
+    per-tile graph sums, for a rung with approximate floatfactors (K6 wide,
+    K7b small)."""
+    return _approx_call(tables, x, None)
+
+
+def ablate_approx(tables, x: torch.Tensor, variant: str) -> torch.Tensor:
+    """K6 with the stages of ``variant`` (one of APPROX_ABLATION_VARIANTS):
+    per-tile partials as :func:`approx_partials` gives them."""
+    if variant not in APPROX_ABLATION_VARIANTS:
+        raise ValueError(f"variant must be one of {APPROX_ABLATION_VARIANTS}, got {variant!r}")
+    return _approx_call(tables, x, APPROX_ABLATION_VARIANTS.index(variant))

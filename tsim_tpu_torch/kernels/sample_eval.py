@@ -7,9 +7,9 @@ no fallback: the plain version
 tensors, chosen by the caller, which also runs the start-up self-test
 (``compile/sample_eval.py::ensure_self_test``).
 
-Configurations by name (and the TPU kernel each replaces): ``wide`` (K1,
-bit-sliced parities, any number of parameters), ``small`` (K2, at most
-MAX_WORDS packed words), ``per_term_wide`` (K3a), ``per_term_small`` (K3b);
+Configurations by name (and the TPU kernel each replaces): ``wide`` (K1) and
+``small`` (K2), both with bit-sliced parities and any number of parameters,
+``per_term_wide`` (K3a), ``per_term_small`` (K3b);
 ``self_test`` counts the launches of the start-up self-test (K4) and
 ``ablate`` those of the stage ablation (K8, ``dev/torch_kernel_ablate.py``).
 """
@@ -21,7 +21,6 @@ import os
 
 import torch
 
-from ..compile.sample_tables import MAX_WORDS
 from . import build
 
 SMALL_G_CUTOFF = 24  # graphs; fewer take the one-thread-per-shot configurations
@@ -60,20 +59,21 @@ def use_packed() -> bool:
     """False where ``TSIM_TPU_SAMPLE_TPACK=0``, tsim_tpu's switch to the
     per-term kernels (``pallas_sample._use_tpack``), read at every call.
     The switch exists only to mirror tsim_tpu in tests: the per-term
-    kernels are slower, and rows over MAX_WORDS words take them without it."""
+    kernels are slower."""
     return os.environ.get("TSIM_TPU_SAMPLE_TPACK", "1") != "0"
 
 
 def configuration(num_graphs: int, words: int = 1, per_term: bool | None = None) -> str:
-    """The f32 configuration of a rung: per-term where its rows need more
-    than MAX_WORDS packed words, where ``per_term`` is true or, with
-    ``per_term`` None, where the switch of :func:`use_packed` is off."""
+    """The f32 configuration of a rung: per-term only where ``per_term`` is
+    true or, with ``per_term`` None, where the switch of :func:`use_packed`
+    is off. Rows of any number of packed ``words`` take "wide" or "small":
+    their planes are indexed by parameter. tsim_tpu's dispatch differs by the
+    design of its kernels: it also falls back to its per-term kernels when the
+    start-up probe of the packed ones fails, where the self-test here raises."""
     base = layout(num_graphs)
     if per_term is None:
         per_term = not use_packed()
-    if words > MAX_WORDS or per_term:
-        return f"per_term_{base}"
-    return base
+    return f"per_term_{base}" if per_term else base
 
 
 def _check(tables, x: torch.Tensor) -> None:
@@ -123,8 +123,6 @@ def launch(tables, x: torch.Tensor, config: str, count_as: str | None = None) ->
     (B, P) uint8 rows on a CUDA device -> (B, 2) float32 (re, im)."""
     if config not in CONFIGURATIONS:
         raise ValueError(f"configuration must be one of {CONFIGURATIONS}, got {config!r}")
-    if config == "small" and tables.words > MAX_WORDS:
-        raise ValueError(f"small: {tables.words} words per row, the packed kernels take {MAX_WORDS}")
     return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or config)
 
 
