@@ -11,7 +11,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    main path's shape (2^20 seeded rows plus a probe row, as one ladder
    call of a 2^20-shot batch), within rtol 1e-5 of the row's magnitude
    (atol 1e-8); on the same inputs both are timed with CUDA events on the
-   first 103-graph rung (wide) and the 6-graph rung (small);
+   first 103-graph rung (wide) and the 6-graph rung (small), the kernels in
+   device time (each launch between its own events, queued behind a sleep:
+   a short launch takes the card less time than the host takes to enqueue it);
 4. the main path: ``distillation_d3(p=0.05).compile_detector_sampler(
    seed=0, device="cuda").sample(8 * 2**20, batch_size=2**20,
    append_observables=True)``, with the kernels' launch counts, the norm
@@ -42,7 +44,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    2^20 + 1 rows; K1 must equal K3a, and K2 K3b, bit for bit; within rtol 1e-5 of
    the row's mass (the sum over graphs of |product|: cultivation's graph
    sums cancel to near zero on most rows, where only the mass sets the
-   scale of f32 rounding); timed in turns with the plain version: K1 and K3a
+   scale of f32 rounding); timed in turns with the plain version, the kernels
+   in device time: K1 and K3a
    on cultivation's 307-graph rung, K2 and K3b on d3's 6-graph rung and on
    1-check cultivation's last 16-graph rung (K2 there also at 1024 and
    16,384 rows);
@@ -98,6 +101,8 @@ import time
 import numpy as np
 import torch
 
+from dev.torch_kernel_ablate import device_ms, state_prob_path_rows, time_ms
+
 RTOL, ATOL = 1e-5, 1e-8
 NORM_TOL = 3e-3
 Z_BOUND = 4 * math.sqrt(2)
@@ -135,7 +140,6 @@ WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' fou
 LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
 LONG_ROW_COUNT = (1 << 16) + 1
 DEVICE = "cuda"
-SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock, longer than the queued calls take to enqueue
 
 # Peaks of one H100 SXM (NVIDIA's data sheet; 132 SMs at a boost clock of
 # 1.98 GHz): HBM at 3.35 TB/s; f32 at 67 TFLOP/s outside the tensor cores
@@ -222,16 +226,41 @@ def exact_bound(circuit, tables, rows: int) -> tuple[float, str]:
     return _bound(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
+def approx_operations(circuit) -> float:
+    """Least int32 operations per row of the approximate finisher (K6, K7b),
+    counted family by family as the cheapest known way forms the float32
+    value, whatever the kernel does:
+
+    * the parities bit-sliced, one XOR per set parameter per 32 rows
+      (:func:`parity_bits` / 32);
+    * a live node-phase term of phase 0 or 4 has the factor 2 or 0, chosen by
+      its parity alone: one OR into the graph's zero plane per 32 rows;
+    * a live half-pi term and a live pi product fold into bit planes too (a
+      ripple into the total, an AND into the sign): 1/32 each;
+    * a live node-phase term of any other phase needs its own value per row
+      (a counter's increment chosen by the parity): one operation;
+    * a live phase-pair term is not a monomial and stays a Z[w] product: 12,
+      as :func:`exact_bound` counts it.
+
+    The float work of the one conversion per graph is not counted."""
+    npp = circuit.node_phases
+    phases = np.asarray(npp.phases) & 7
+    live = np.arange(phases.shape[0])[:, None] < np.asarray(npp.counts)[None, :]
+    sliced = int(np.count_nonzero(live & (phases & 3 == 0)))
+    n1, n2, n3, n4 = live_terms(circuit)
+    return (n1 - sliced) + 12 * n4 + (sliced + n2 + n3 + parity_bits(circuit)) / 32
+
+
 def approx_bound(circuit, tables, rows: int) -> tuple[float, str]:
     """(least ms, what bounds it) of one evaluation with the approximate
-    finisher (K6, K7b), stated so that it reads the same whatever implements
-    the product: the bytes of :func:`exact_bound`, and one int32 operation per
-    live term of any family per row beside the bit-sliced parities
-    (:func:`parity_bits` / 32). :func:`exact_bound` charges a node-phase term
-    the 4 adds of ``acc + w^k acc``; a product kept as counters needs one, so
-    that count could be beaten and is kept for the exact finisher only."""
-    ops = rows * (sum(live_terms(circuit)) + parity_bits(circuit) / 32)
-    nbytes = rows * tables.n_params + 4 * (tables.flat.numel() + tables.approx.numel()) + rows * 8
+    finisher (K6, K7b): its bytes (rows, the table buffer and the (re, im)
+    result once; the approximate factors lie folded inside the buffer) over
+    HBM, and :func:`approx_operations` per row over the int32 peak.
+    :func:`exact_bound` charges a node-phase term the 4 adds of ``acc + w^k
+    acc``, which a product kept as counters does not need, so that count is
+    kept for the exact finisher only."""
+    ops = rows * approx_operations(circuit)
+    nbytes = rows * tables.n_params + 4 * tables.flat.numel() + rows * 8
     return _bound(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
@@ -249,19 +278,6 @@ def rows(n_params: int, count: int, seed: int, device):
     return torch.from_numpy(x).to(device)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Mean milliseconds per call, with CUDA events, after one warm-up call."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def timed_once(fn):
     """(result, milliseconds) of one call, with CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -271,22 +287,6 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
-
-
-def device_ms(fn, reps: int = 5) -> float:
-    """Mean device milliseconds of one call, after one warm-up call: each
-    call between its own pair of CUDA events, all queued behind a sleep on
-    the card, so the host's launch time stays outside the pairs."""
-    fn()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 def check_z(label: str, means, n: int, ref, n_ref: int) -> None:
@@ -376,8 +376,8 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
                 if t.approximate:
                     as_exact[name], by = bound
                     bound = approx_bound(csg, t, KERNEL_ROWS)
-                    print(f"bound of {name} on {label} G={t.num_graphs}: {bound[0]:.4f} ms ({bound[1]}; one "
-                          f"operation a live term), {as_exact[name]:.4f} ms ({by}) as the exact finisher's "
+                    print(f"bound of {name} on {label} G={t.num_graphs}: {bound[0]:.4f} ms ({bound[1]}; "
+                          f"{approx_operations(csg):.1f} operations a row), {as_exact[name]:.4f} ms ({by}) as the exact finisher's "
                           "is counted", flush=True)
                 timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"{label} G={t.num_graphs}")
                 print(
@@ -406,15 +406,8 @@ def path_rows_time(circuit) -> None:
     from tsim_tpu_torch.compile.evaluate import evaluate_abs
     from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
     from tsim_tpu_torch.kernels import exact_eval as kernel
-    from tsim_tpu_torch.sampler import static_take_columns
 
-    sp = circuit.compile_state_probs(seed=0, device=DEVICE)
-    comp = sp._tables.components[0]
-    joint = comp.rungs[1]
-    state = torch.as_tensor(np.asarray(circuit.load_state_probs().replay["states"][0], np.uint8), device=DEVICE)
-    f = sp._device_channels.sample(sp._generator, KERNEL_ROWS)
-    x = torch.cat([static_take_columns(f, comp.f_selection),
-                   state[comp.output_indices].expand(KERNEL_ROWS, -1)], dim=1).contiguous()
+    joint, x = state_prob_path_rows(circuit, KERNEL_ROWS)
     got, want = evaluate_abs_exact(joint, x), evaluate_abs(joint.circuit(), x)
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all() and (err <= ATOL + RTOL * want).all())
@@ -580,29 +573,29 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
                  "the same order and must agree bit for bit")
         del outs
         if (label, t.num_graphs, t.n_params) == heaviest_small:
-            a = time_ms(lambda: kernel.launch(t, x, "small"))
-            b = time_ms(lambda: kernel.launch(t, x, "per_term_small"))
+            a = device_ms(lambda: kernel.launch(t, x, "small"))
+            b = device_ms(lambda: kernel.launch(t, x, "per_term_small"))
             bound = f32_bound(c, 4 * t.flat.numel(), KERNEL_ROWS)
-            few = {n: time_ms(lambda n=n: kernel.launch(t, x[:n], "small"), reps=20) for n in (1024, 16384)}
+            few = {n: device_ms(lambda n=n: kernel.launch(t, x[:n], "small"), reps=20) for n in (1024, 16384)}
             print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} P={t.n_params}: bound {bound[0]:.4f} ms "
                   f"({bound[1]}), small {a:.4f} ms, per_term_small {b:.4f} ms; small at "
-                  + ", ".join(f"{n} rows {ms:.4f} ms" for n, ms in few.items()), flush=True)
+                  + ", ".join(f"{n} rows {ms:.4f} ms" for n, ms in few.items()) + " (device time)", flush=True)
         pair = timed.get((label, t.num_graphs))
         if pair and pair[0] not in timing:
             # In turns: plain, packed, per-term, per-term, packed, plain.
             packed, per_term = pair
             _, p1 = timed_once(lambda: sample_product_sum_reference(t, x))
-            a1 = time_ms(lambda: kernel.launch(t, x, packed))
-            b1 = time_ms(lambda: kernel.launch(t, x, per_term))
-            b2 = time_ms(lambda: kernel.launch(t, x, per_term))
-            a2 = time_ms(lambda: kernel.launch(t, x, packed))
+            a1 = device_ms(lambda: kernel.launch(t, x, packed))
+            b1 = device_ms(lambda: kernel.launch(t, x, per_term))
+            b2 = device_ms(lambda: kernel.launch(t, x, per_term))
+            a2 = device_ms(lambda: kernel.launch(t, x, packed))
             _, p2 = timed_once(lambda: sample_product_sum_reference(t, x))
             bound = f32_bound(c, 4 * t.flat.numel(), KERNEL_ROWS)
             rung = f"{label} G={t.num_graphs}"
             timing[packed] = ((a1 + a2) / 2, (p1 + p2) / 2, *bound, rung)
             timing[per_term] = ((b1 + b2) / 2, (p1 + p2) / 2, *bound, rung)
             print(f"time at B={KERNEL_ROWS}, {rung}: bound {bound[0]:.4f} ms ({bound[1]}), "
-                  f"{packed} {a1:.4f} / {a2:.4f} ms, {per_term} {b1:.4f} / {b2:.4f} ms, "
+                  f"{packed} {a1:.4f} / {a2:.4f} ms, {per_term} {b1:.4f} / {b2:.4f} ms (device time), "
                   f"plain {p1:.2f} / {p2:.2f} ms", flush=True)
         del t, x, want, mass, scale, norm
         torch.cuda.empty_cache()
@@ -891,15 +884,15 @@ def main() -> None:
             fail(f"rung {i}: kernel disagrees with the plain version beyond rtol {RTOL}")
         del got, want, err, scale
         if timed[config] == t.num_graphs and config not in timing:
-            k1 = time_ms(lambda: kernel.sample_product_sum(t, x))
+            k1 = device_ms(lambda: kernel.sample_product_sum(t, x))
             p1 = time_ms(lambda: sample_product_sum_reference(t, x))
-            k2 = time_ms(lambda: kernel.sample_product_sum(t, x))
+            k2 = device_ms(lambda: kernel.sample_product_sum(t, x))
             p2 = time_ms(lambda: sample_product_sum_reference(t, x))
             bound = f32_bound(rungs[i], 4 * t.flat.numel(), KERNEL_ROWS)
             timing[config] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"d3 G={t.num_graphs}")
             print(
                 f"time at B={KERNEL_ROWS}, G={t.num_graphs} ({config}): bound {bound[0]:.4f} ms "
-                f"({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms",
+                f"({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms (device time), plain {p1:.4f} / {p2:.4f} ms",
                 flush=True,
             )
     if set(timing) != set(timed):

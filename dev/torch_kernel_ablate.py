@@ -33,6 +33,9 @@ parities consumed without factors), ``full`` (K6's own code, equal to K6 bit
 for bit). ``par-all`` less ``empty`` is the integer stage, ``full`` less
 ``par-all`` the per-shot stage.
 
+The timers (``time_ms``, ``device_ms``) and ``state_prob_path_rows`` also
+serve ``chip_smoke.py`` and ``dev/torch_time_rungs.py``.
+
 Needs a CUDA device; imports only the port.
 """
 
@@ -50,6 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 RTOL, ATOL = 1e-5, 1e-8
 PROGRAMS = ("cultivation", "cultivation_checks1", "d3", "d3_state_probs")
+SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock, longer than the queued calls take to enqueue
 
 
 def load_rung(program: str, rung: int):
@@ -81,7 +85,7 @@ def emptied(circuit, keep):
     return dataclasses.replace(circuit, **dict(v for k, v in empty.items() if k not in keep))
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds per call, with CUDA events, after one warm-up call."""
     import torch
 
@@ -94,6 +98,41 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device milliseconds of one call, after one warm-up call: each
+    call between its own pair of CUDA events, all queued behind a sleep on
+    the card, so the host's launch time stays outside the pairs."""
+    import torch
+
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
+def state_prob_path_rows(circuit, count: int):
+    """(joint rung's exact tables, ``count`` rows) as the state-probability
+    path of ``circuit`` evaluates them on the card: f-bits drawn by its own
+    noise sampler (seed 0), the first exported state tiled behind them."""
+    import torch
+
+    from tsim_tpu_torch.sampler import static_take_columns
+
+    sp = circuit.compile_state_probs(seed=0, device="cuda")
+    comp = sp._tables.components[0]
+    state = torch.as_tensor(np.asarray(circuit.load_state_probs().replay["states"][0], np.uint8), device="cuda")
+    f = sp._device_channels.sample(sp._generator, count)
+    x = torch.cat([static_take_columns(f, comp.f_selection),
+                   state[comp.output_indices].expand(count, -1)], dim=1).contiguous()
+    return comp.rungs[1], x
 
 
 def ablate_rung(circuit, x, reps: int = 10) -> list[dict]:

@@ -39,41 +39,10 @@ import subprocess
 import sys
 
 import numpy as np
+from torch_kernel_ablate import device_ms, state_prob_path_rows, time_ms  # beside this script
 
 ROWS = (1 << 20) + 1
 SMALL_BATCHES = (1024, 16384)
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call, with CUDA events, after one warm-up call."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of one call: each call between its own pair of
-    events, all queued behind a sleep on the card (about 25 ms of its clock)."""
-    import torch
-
-    fn()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 def seeded_rows(n_params: int, count: int, seed: int):
@@ -85,13 +54,10 @@ def seeded_rows(n_params: int, count: int, seed: int):
 
 def measure(reps: int) -> dict:
     """{label: ms} of every timed launch, on the tree first on sys.path."""
-    import torch
-
     from tsim_tpu_torch.compile.exact_tables import ExactTables
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import exact_eval, sample_eval
     from tsim_tpu_torch.models import cultivation_d3, distillation_d3
-    from tsim_tpu_torch.sampler import static_take_columns
 
     d3 = distillation_d3(p=0.05)
     programs = {
@@ -115,28 +81,22 @@ def measure(reps: int) -> dict:
                 ms = device_ms(lambda: sample_eval.launch(t, x, "small"), reps)
                 out[f"small {name}[{i}] G={c.num_graphs} P={c.n_params} B={rows}"] = ms
 
-    def exact(label, csg, x):
-        t = ExactTables(csg).to("cuda")
+    def exact(label, t, x):
         fn = exact_eval.approx_partials if t.approximate else exact_eval.exact_partials
         kind = f"{'approx' if t.approximate else 'exact'}_{exact_eval.configuration(t.num_graphs)}"
         out[f"{kind} {label} G={t.num_graphs} P={t.n_params} B={x.shape[0]}"] = time_ms(lambda: fn(t, x), reps)
 
     joint = d3.load_state_probs().program.components[0].compiled_scalar_graphs[1]
-    exact("state probs, seeded rows", joint, seeded_rows(joint.n_params, ROWS, seed=50))
-    sp = d3.compile_state_probs(seed=0, device="cuda")
-    comp = sp._tables.components[0]
-    f = sp._device_channels.sample(sp._generator, ROWS)
-    state = torch.as_tensor(np.asarray(d3.load_state_probs().replay["states"][0], np.uint8), device="cuda")
-    path_rows = torch.cat(
-        [static_take_columns(f, comp.f_selection), state[comp.output_indices].expand(ROWS, -1)], dim=1
-    ).contiguous()
+    exact("state probs, seeded rows", ExactTables(joint).to("cuda"), seeded_rows(joint.n_params, ROWS, seed=50))
+    joint_tables, path_rows = state_prob_path_rows(d3, ROWS)
     out["state probs, path rows: share of ones"] = float(path_rows.float().mean())
-    exact("state probs, path rows", joint, path_rows)
+    exact("state probs, path rows", joint_tables, path_rows)
     for i in (1, 2, 3, 4, 5):
-        exact(f"d3[{i}]", rungs["d3"][i], seeded_rows(rungs["d3"][i].n_params, ROWS, seed=60 + i))
+        c = rungs["d3"][i]
+        exact(f"d3[{i}]", ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=60 + i))
     for i in (9, 1):
         c = rungs["cultivation"][i]
-        exact(f"cultivation[{i}]", c, seeded_rows(c.n_params, ROWS, seed=70 + i))
+        exact(f"cultivation[{i}]", ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=70 + i))
     return out
 
 

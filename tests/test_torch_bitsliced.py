@@ -227,7 +227,7 @@ def test_lists_name_the_set_bits_of_small_rungs(programs, program, rung):
 def test_small_rungs_of_many_parameters(n_params):
     """Small rungs past four packed words, with one- and two-byte indices."""
     rung = _sparse_rung(n_params, seed=n_params, num_graphs=8)
-    assert kernel.configuration(rung.num_graphs, -(-n_params // 32)) == "small"
+    assert kernel.configuration(rung.num_graphs) == "small"
     _check_lists(SampleTables(rung))
     _check_front_end(rung, 129, seed=3)
 

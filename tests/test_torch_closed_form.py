@@ -15,7 +15,10 @@ phase in sixteenths of a turn). Here, with inputs from a numpy seed:
   ``tsim_tpu.compile.evaluate.evaluate_abs`` within rtol 1e-5 on the same rows;
 * the float tables are the float64 ones rounded once; a count that does not
   fit its field raises at table build, naming G, T1 and the field;
-* the stage split's variants and the wrapper's refusals.
+* the stage split's variants and the wrapper's refusals;
+* the least operations ``chip_smoke.py`` charges the approximate finisher per
+  row, counted again here from the factor table on every approximate rung of
+  the committed programs.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dev.export_torch_program import compile_d3, compile_d3_state_probs
 from tsim_tpu.compile import evaluate as jax_evaluate
 from tsim_tpu.compile.compile import compile_scalar_graphs
@@ -35,6 +39,7 @@ from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables, exact_table_layout
 from tsim_tpu_torch.compile.sample_eval import synthetic_rung
 from tsim_tpu_torch.kernels import exact_eval as kernel
+from tsim_tpu_torch.models import distillation_d3
 from tsim_tpu_torch.program_io import rung_from_reference
 
 RTOL64, RTOL32 = 1e-12, 1e-5
@@ -231,3 +236,30 @@ def test_stage_split_names_and_refusals():
         kernel.ablate_approx(tables, x, "full")
     with pytest.raises(ValueError, match="variant"):
         kernel.ablate_approx(tables, x, "par1")
+
+
+@pytest.mark.parametrize("program,rung", APPROXIMATE_RUNGS, ids=[f"{p}[{r}]" for p, r in APPROXIMATE_RUNGS])
+def test_least_operations_of_the_approximate_finisher(program, rung):
+    """The bound's operation count charges a row one operation only for a node
+    phase whose factor needs a value per shot: a term one of whose two factors
+    vanishes (phase 0 or 4: 2 or 0) is a bit-sliced OR, as half-pi terms and pi
+    products are bit-sliced; phase pairs cost what the exact bound says."""
+    d3 = distillation_d3(p=0.05)
+    exported = d3.load() if program == "d3" else d3.load_state_probs()
+    c = exported.program.components[0].compiled_scalar_graphs[rung]
+    phases = np.asarray(c.node_phases.phases) & 7
+    live = np.arange(phases.shape[0])[:, None] < np.asarray(c.node_phases.counts)[None]
+    vanishing = (closed_form.FACTORS[phases, 0] | closed_form.FACTORS[(phases + 4) & 7, 0]).astype(bool)
+    n1, n2, n3, n4 = chip_smoke.live_terms(c)
+    assert n1 == live.sum()
+    sliced = int((live & vanishing).sum())
+    want = (n1 - sliced) + 12 * n4 + (sliced + n2 + n3 + chip_smoke.parity_bits(c)) / 32
+    got = chip_smoke.approx_operations(c)
+    assert got == want
+    assert got >= chip_smoke.parity_bits(c) / 32 + n4
+    if program == "d3_state_probs":
+        assert (n1, n2, n3, n4, got) == (2761, 375, 409, 86, 2033.0625)
+    tables = ExactTables(c)
+    ms, by = chip_smoke.approx_bound(c, tables, (1 << 20) + 1)
+    as_exact, _ = chip_smoke.exact_bound(c, tables, (1 << 20) + 1)
+    assert 0 < ms <= as_exact and by in ("bytes", "operations")

@@ -110,7 +110,7 @@ def test_plain_version_matches_tsim_tpu_per_term_kernels(monkeypatch, rungs, cas
     else:
         want = np.asarray(pallas_sample.evaluate_abs_sample_f32(csg, vals))
     tables = SampleTables(rung_from_reference(csg), per_term=True)
-    assert kernel.configuration(tables.num_graphs, tables.words, tables.per_term) == (
+    assert kernel.configuration(tables.num_graphs, tables.per_term) == (
         "per_term_" + kernel.layout(tables.num_graphs)
     )
     assert kernel.layout(tables.num_graphs) == (
@@ -137,10 +137,8 @@ def test_wide_rows_take_the_per_term_configuration(rungs):
     tables = SampleTables(port)
     assert tables.words == 5 and tables.num_graphs == 30
     assert kernel.use_packed()
-    assert kernel.configuration(tables.num_graphs, tables.words) == "wide"
-    assert kernel.configuration(8, 5) == "small"
-    assert kernel.configuration(tables.num_graphs, tables.words, per_term=True) == "per_term_wide"
-    assert kernel.configuration(8, 5, per_term=True) == "per_term_small"
+    assert kernel.configuration(tables.num_graphs) == "wide"
+    assert kernel.configuration(tables.num_graphs, per_term=True) == "per_term_wide"
     exact = ExactTables(port)
     assert exact.words == 5 and exact_kernel.configuration(exact.num_graphs) == "wide"
 
@@ -148,17 +146,17 @@ def test_wide_rows_take_the_per_term_configuration(rungs):
 def test_configuration_follows_the_switch(monkeypatch):
     """TSIM_TPU_SAMPLE_TPACK=0 sends every f32 rung to the per-term kernels,
     as tsim_tpu's switch does; the exact kernels' layout does not follow it."""
-    table = [(1, 1), (6, 1), (23, 2), (24, 2), (103, 1), (307, 2)]
-    packed = [kernel.configuration(g, w) for g, w in table]
+    graphs = [1, 6, 23, 24, 103, 307]
+    monkeypatch.delenv("TSIM_TPU_SAMPLE_TPACK", raising=False)
+    packed = [kernel.configuration(g) for g in graphs]
     assert packed == ["small", "small", "small", "wide", "wide", "wide"]
     monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "0")
-    assert [kernel.configuration(g, w) for g, w in table] == [f"per_term_{c}" for c in packed]
-    assert [exact_kernel.configuration(g) for g, _ in table] == packed
-    assert [kernel.configuration(g, w, per_term=False) for g, w in table] == packed  # the argument wins
+    assert [kernel.configuration(g) for g in graphs] == [f"per_term_{c}" for c in packed]
+    assert [exact_kernel.configuration(g) for g in graphs] == packed
+    assert [kernel.configuration(g, per_term=False) for g in graphs] == packed  # the argument wins
     monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "1")
-    assert [kernel.configuration(g, w) for g, w in table] == packed
-    assert [kernel.configuration(g, w, per_term=True) for g, w in table] == [f"per_term_{c}" for c in packed]
-    assert kernel.configuration(8, 5, per_term=False) == "small"  # long rows take the bit-sliced kernels too
+    assert [kernel.configuration(g) for g in graphs] == packed
+    assert [kernel.configuration(g, per_term=True) for g in graphs] == [f"per_term_{c}" for c in packed]
 
 
 def test_launch_refuses_long_rows_on_packed_kernels():
@@ -242,6 +240,6 @@ def test_self_test_failure_raises_and_switches_nothing(monkeypatch, fresh_self_t
     with pytest.raises(RuntimeError, match=f"configuration '{wrong}'"):
         sample_eval.ensure_self_test("cpu")
     assert kernel.launch_counts["self_test"] == runs
-    assert kernel.configuration(103, 2) == "wide" and kernel.configuration(6, 1) == "small"
+    assert kernel.configuration(103) == "wide" and kernel.configuration(6) == "small"
     assert kernel.use_packed()
     assert all(kernel.launch_counts[c] == 0 for c in kernel.CONFIGURATIONS)

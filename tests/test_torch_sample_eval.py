@@ -223,21 +223,6 @@ def test_table_buffer_follows_layout(d3_rungs):
         assert views["pre"].dtype == torch.float32 and views["pre"].shape == (2, csg.num_graphs)
 
 
-@pytest.mark.parametrize("words", [1, 4, 5, 40])
-@pytest.mark.parametrize("graphs,layout", [(1, "small"), (23, "small"), (24, "wide"), (307, "wide")])
-def test_configuration_ignores_the_row_length(graphs, layout, words, monkeypatch):
-    """Only ``per_term=True`` or the test switch reaches the per-term
-    kernels: rows of any number of packed words keep their layout's
-    bit-sliced kernel."""
-    monkeypatch.delenv("TSIM_TPU_SAMPLE_TPACK", raising=False)
-    assert kernel.configuration(graphs, words) == layout
-    assert kernel.configuration(graphs, words, per_term=False) == layout
-    assert kernel.configuration(graphs, words, per_term=True) == f"per_term_{layout}"
-    monkeypatch.setenv("TSIM_TPU_SAMPLE_TPACK", "0")
-    assert kernel.configuration(graphs, words) == f"per_term_{layout}"
-    assert kernel.configuration(graphs, words, per_term=False) == layout
-
-
 def test_too_many_parameters_raise():
     """Past 128 parameters (four packed words) nothing raises any more: the
     exact tables build and evaluate as tsim_tpu's exact evaluator does, and
@@ -253,6 +238,6 @@ def test_too_many_parameters_raise():
     got = sample_eval.evaluate_abs_sample(exact, torch.from_numpy(vals)).numpy()
     np.testing.assert_allclose(got, want, rtol=5e-6, atol=0)
     tables = SampleTables(port)
-    assert tables.words == 5 and kernel.configuration(tables.num_graphs, tables.words) == "small"
+    assert tables.words == 5 and kernel.configuration(tables.num_graphs) == "small"
     got = sample_eval.evaluate_abs_sample(tables, torch.from_numpy(vals)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)

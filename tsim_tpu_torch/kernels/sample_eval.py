@@ -63,11 +63,11 @@ def use_packed() -> bool:
     return os.environ.get("TSIM_TPU_SAMPLE_TPACK", "1") != "0"
 
 
-def configuration(num_graphs: int, words: int = 1, per_term: bool | None = None) -> str:
+def configuration(num_graphs: int, per_term: bool | None = None) -> str:
     """The f32 configuration of a rung: per-term only where ``per_term`` is
     true or, with ``per_term`` None, where the switch of :func:`use_packed`
-    is off. Rows of any number of packed ``words`` take "wide" or "small":
-    their planes are indexed by parameter. tsim_tpu's dispatch differs by the
+    is off. Rows of any length take "wide" or "small": their planes are
+    indexed by parameter. tsim_tpu's dispatch differs by the
     design of its kernels: it also falls back to its per-term kernels when the
     start-up probe of the packed ones fails, where the self-test here raises."""
     base = layout(num_graphs)
@@ -139,4 +139,4 @@ def sample_product_sum(tables, x: torch.Tensor) -> torch.Tensor:
     of the graph-summed product, for the rung held by ``tables``, in the
     rung's configuration (``tables.per_term``, where set, decides between
     the packed and the per-term kernels in place of the environment's switch)."""
-    return launch(tables, x, configuration(tables.num_graphs, tables.words, tables.per_term))
+    return launch(tables, x, configuration(tables.num_graphs, tables.per_term))
