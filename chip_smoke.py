@@ -23,9 +23,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    cultivation program, the d3 program and the d3 state-probability
    program, at 2^20 + 1 seeded rows: exact kernels give equal magnitudes,
    approximate ones agree within rtol 1e-5 of the row's magnitude; each
-   kernel and the plain version are timed with CUDA events on one rung, and
-   the wide approximate kernel (K6) also on d3's three wide rungs and on
-   2^20 + 1 rows that the state-probability path draws itself;
+   kernel and the plain version are timed with CUDA events on one rung (the
+   kernels in device time), the small exact kernel (K7a) also at 1024 and
+   16,384 rows and on the state-probability norm rung, and the wide
+   approximate kernel (K6) also on d3's three wide rungs and on 2^20 + 1 rows
+   that the state-probability path draws itself;
 6. state probabilities: ``distillation_d3(p=0.05).compile_state_probs(
    seed=0, device="cuda").probability_of(state, batch_size=2**20)`` for
    the exported states (values finite, in [0, 1]; calls/s and rows/s), and
@@ -48,10 +50,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    in device time: K1 and K3a
    on cultivation's 307-graph rung, K2 and K3b on d3's 6-graph rung and on
    1-check cultivation's last 16-graph rung (K2 there also at 1024 and
-   16,384 rows);
+   16,384 rows); K1's two instances, 32 and 128 shots a block, equal bit for
+   bit on every wide rung at 2^20 + 1 rows, and on cultivation's 307-graph
+   and d3's first 103-graph rung also at 128 to 65,536 rows, each of those
+   timed in device time (the sweep that chose the row count between them);
 9. the start-up self-test of the f32 kernels (K4): its result, and its
    four launches and their plain versions timed, each call on the card
-   alone (events queued behind a sleep, so host time stays out);
+   alone (events queued behind a sleep, so host time stays out), and their
+   sum;
 10. postselected f32 cultivation: ``cultivation_d3(p=0.001, checks=2)
     .compile_detector_sampler(seed=0, device="cuda").sample(4 * 2**20,
     batch_size=2**20, postselection_mask=ones, use_detector_reference_sample=True,
@@ -79,9 +85,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
     magnitude: their random graph sums cancel on some rows);
 15. the stage split of the wide approximate kernel (K6) on the state-probability
     rung at 2^20 rows: ``empty``, ``par-all`` and ``full``, which must equal K6
-    bit for bit.
+    bit for bit;
+16. small batches: ``distillation_d3(p=0.05).compile_detector_sampler(seed=0,
+    device="cuda").sample(16 * 4096, batch_size=4096, append_observables=True)``,
+    a notebook's batch, whose wide rungs take K1's 32-shot block: launches,
+    norm deviation, shots/s and z-scores as in phase 4.
 
-Each path of phases 4, 6, 7 and 10 to 13 runs with the launch counts set to
+Each path of phases 4, 6, 7, 10 to 13 and 16 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
 launched fails the run. The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
@@ -136,6 +146,11 @@ PER_TERM_REPLACES = {
 SELF_TEST_REPLACES = "tsim_tpu/compile/pallas_sample.py:405"  # _tpack_probe (K4)
 ABLATE_REPLACES = "dev/kernel_ablate.py:132"  # run_variant -> _body_ablate (K8)
 CULTIVATION_SHOTS = 4 * MAIN_BATCH
+SMALL_BATCH = 4096  # phase 16: a batch whose wide rungs take the 32-shot block of K1
+SMALL_SHOTS = 16 * SMALL_BATCH
+SWEEP_ROWS = (128, 1024, 4096, 8192, 16384, 32768, 65536)  # phase 8: rows at which K1's two instances are timed
+SWEPT = {("cultivation", 307), ("d3", 103)}  # (program, graphs) of the rungs swept
+SMALL_EXACT_ROWS = (1024, 16384)  # phase 5: K7a also at these rows
 WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' four words
 LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
 LONG_ROW_COUNT = (1 << 16) + 1
@@ -368,9 +383,9 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
                 # to be timed once per turn.
                 partials = kernel.approx_partials if t.approximate else kernel.exact_partials
                 _, p1 = timed_once(lambda: evaluate_abs(t.circuit(), x))
-                k1 = time_ms(lambda: partials(t, x))
+                k1 = device_ms(lambda: partials(t, x))
                 d1 = time_ms(lambda: evaluate_abs_exact(t, x))
-                k2 = time_ms(lambda: partials(t, x))
+                k2 = device_ms(lambda: partials(t, x))
                 _, p2 = timed_once(lambda: evaluate_abs(t.circuit(), x))
                 bound = exact_bound(csg, t, KERNEL_ROWS)
                 if t.approximate:
@@ -383,10 +398,19 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
                 print(
                     f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound "
                     f"{bound[0]:.4f} ms ({bound[1]}), kernel "
-                    f"{k1:.4f} / {k2:.4f} ms, dispatch with the partials' combine {d1:.4f} ms, "
+                    f"{k1:.4f} / {k2:.4f} ms (device time), dispatch with the partials' combine {d1:.4f} ms, "
                     f"plain {p1:.2f} / {p2:.2f} ms",
                     flush=True,
                 )
+                if name == "exact_small":
+                    few = {n: device_ms(lambda n=n: kernel.exact_partials(t, x[:n]), reps=20)
+                           for n in SMALL_EXACT_ROWS}
+                    print(f"exact_small on {label} G={t.num_graphs}: " + ", ".join(
+                        f"{n} rows {ms:.4f} ms" for n, ms in few.items()) + " (device time)", flush=True)
+            elif name == "exact_small" and label == "d3_state_probs":
+                print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} P={t.n_params} (exact_small, the norm "
+                      f"rung): kernel {device_ms(lambda: kernel.exact_partials(t, x)):.4f} ms (device time)",
+                      flush=True)
             elif name == "approx_wide":
                 bound = approx_bound(csg, t, KERNEL_ROWS)
                 print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound {bound[0]:.4f} ms "
@@ -520,14 +544,44 @@ def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
     return cult_launches, d3_launches
 
 
+def wide_sweep(t, circuit, x, label: str) -> None:
+    """Phase 8: K1's two instances on the first n rows of ``x`` for n in
+    SWEEP_ROWS, equal bit for bit, each timed in device time in turns (32,
+    128, 128, 32 shots a block)."""
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    faster = []
+    for n in SWEEP_ROWS:
+        xs = x[:n]
+        if not torch.equal(kernel.launch(t, xs, "wide", _block_shots=32),
+                           kernel.launch(t, xs, "wide", _block_shots=128)):
+            fail(f"{label} G={t.num_graphs}: wide's two instances differ at {n} rows")
+
+        def timed(shots):
+            return device_ms(lambda: kernel.launch(t, xs, "wide", _block_shots=shots), reps=10)
+
+        a1, b1, b2, a2 = timed(32), timed(128), timed(128), timed(32)
+        small, large = (a1 + a2) / 2, (b1 + b2) / 2
+        faster.append(32 if small < large else 128)
+        bound = f32_bound(circuit, 4 * t.flat.numel(), n)
+        print(f"wide instances, {label} G={t.num_graphs}, {n} rows: equal bit for bit; bound {bound[0]:.6f} ms, "
+              f"32 shots a block {a1:.4f} / {a2:.4f} ms, 128 shots {b1:.4f} / {b2:.4f} ms (device time); "
+              f"the row count takes {kernel.wide_block_shots(n)}", flush=True)
+    print(f"wide instances, {label} G={t.num_graphs}: the faster block at {list(SWEEP_ROWS)} rows: {faster} "
+          f"shots (the dispatch takes 32 below {kernel.WIDE_SMALL_ROWS} rows)", flush=True)
+
+
 def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
     """Phase 8: the per-term and the bit-sliced f32 kernels vs the plain
     version on every rung at KERNEL_ROWS rows (the two of a layout equal bit
-    for bit), and the timings of K1/K3a on cultivation's 307-graph rung and
-    K2/K3b on d3's 6-graph rung and on 1-check cultivation's last 16-graph rung.
+    for bit, K1's two instances too), the timings of K1/K3a on cultivation's
+    307-graph rung and K2/K3b on d3's 6-graph rung and on 1-check
+    cultivation's last 16-graph rung, K1's instances swept over SWEEP_ROWS on
+    the rungs of SWEPT, and the 32-shot instance timed on d3's first
+    103-graph rung at the rows of phase 16's batch.
 
-    Returns ({configuration: max abs err}, {configuration: (kernel ms,
-    plain ms, bound ms, bound by, rung)})."""
+    Returns ({configuration or "wide_32": max abs err}, {configuration or
+    "wide_32": (kernel ms, plain ms, bound ms, bound by, rung)})."""
     from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference, synthetic_rung
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import sample_eval as kernel
@@ -540,8 +594,8 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
     ]
     rungs += [(f"seeded P={WIDE_PARAMS}", synthetic_rung(s, g, WIDE_PARAMS, (6, 4, 4, 2)))
               for s, g in ((11, 40), (12, 8))]
-    max_abs = dict.fromkeys(kernel.CONFIGURATIONS, 0.0)
-    timing = {}
+    max_abs = dict.fromkeys((*kernel.CONFIGURATIONS, "wide_32"), 0.0)
+    timing, swept = {}, set()
     for i, (label, c) in enumerate(rungs):
         t = SampleTables(c).to(dev)
         x = rows(t.n_params, KERNEL_ROWS, seed=300 + i, device=dev)
@@ -571,7 +625,31 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
         if not same:
             fail(f"{label} G={t.num_graphs}: {configs[1]} and {configs[0]} add the same f32 values in "
                  "the same order and must agree bit for bit")
+        if layout == "wide":
+            got = kernel.launch(t, x, "wide", _block_shots=32)
+            max_abs["wide_32"] = max(max_abs["wide_32"], float((got - want).abs().max()))
+            same = torch.equal(got, outs["wide"])
+            print(f"{label} G={t.num_graphs}: wide's 32-shot block equals its 128-shot block bit for bit: {same}",
+                  flush=True)
+            if not same:
+                fail(f"{label} G={t.num_graphs}: wide's two instances add the same f32 values in the same order "
+                     "and must agree bit for bit")
+            del got
         del outs
+        if (label, t.num_graphs) in SWEPT and (label, t.num_graphs) not in swept:
+            swept.add((label, t.num_graphs))
+            wide_sweep(t, c, x, label)
+        if (label, t.num_graphs) == ("d3", 103) and "wide_32" not in timing:
+            xs = x[: SMALL_BATCH + 1]
+            k1 = device_ms(lambda: kernel.launch(t, xs, "wide", _block_shots=32), reps=20)
+            p1 = time_ms(lambda: sample_product_sum_reference(t, xs))
+            k2 = device_ms(lambda: kernel.launch(t, xs, "wide", _block_shots=32), reps=20)
+            p2 = time_ms(lambda: sample_product_sum_reference(t, xs))
+            bound = f32_bound(c, 4 * t.flat.numel(), xs.shape[0])
+            timing["wide_32"] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"{label} G={t.num_graphs}, B={xs.shape[0]}")
+            print(f"time at B={xs.shape[0]} (phase 16's batch), {label} G={t.num_graphs} (wide, 32 shots a block): "
+                  f"bound {bound[0]:.6f} ms ({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms (device time), "
+                  f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
         if (label, t.num_graphs, t.n_params) == heaviest_small:
             a = device_ms(lambda: kernel.launch(t, x, "small"))
             b = device_ms(lambda: kernel.launch(t, x, "per_term_small"))
@@ -599,8 +677,8 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
                   f"plain {p1:.2f} / {p2:.2f} ms", flush=True)
         del t, x, want, mass, scale, norm
         torch.cuda.empty_cache()
-    if len(timing) != 4:
-        fail(f"no rung with the timed graph counts {sorted(timed)}")
+    if len(timing) != 5 or swept != SWEPT:
+        fail(f"no rung with the timed graph counts {sorted(timed)} or the swept ones {sorted(SWEPT)}")
     return max_abs, timing
 
 
@@ -626,7 +704,8 @@ def self_test_phase(dev) -> tuple[float, tuple]:
         k = device_ms(lambda: kernel.launch(t, x, c, count_as="self_test"))
         p = device_ms(lambda: sample_eval.sample_product_sum_reference(t, x))
         b = f32_bound(circuits[layout], 4 * t.flat.numel(), x.shape[0])
-        print(f"self-test launch {c} ({x.shape[0]} rows): bound {b[0]:.6f} ms ({b[1]}), "
+        block = f", {kernel.wide_block_shots(x.shape[0])} shots a block" if c == "wide" else ""
+        print(f"self-test launch {c} ({x.shape[0]} rows{block}): bound {b[0]:.6f} ms ({b[1]}), "
               f"kernel {k:.4f} ms, plain {p:.4f} ms (device time)", flush=True)
         ms, plain_ms, bound_ms = ms + k, plain_ms + p, bound_ms + b[0]
         by.add(b[1])
@@ -733,6 +812,35 @@ def checks1_path(cultivation) -> dict:
     if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
         fail("cultivation 1-check: norm deviation above the f32 tolerance")
     check_means("cultivation 1-check", out, exported)
+    return launches
+
+
+def small_batch_path(circuit) -> dict:
+    """Phase 16: d3 distillation f32 sampling in batches of SMALL_BATCH shots,
+    whose wide rungs take the 32-shot block of K1."""
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+
+    exported = circuit.load()
+    sampler = circuit.compile_detector_sampler(seed=0, device=DEVICE)
+    sampler.sample(SMALL_BATCH, batch_size=SMALL_BATCH, append_observables=True)  # warm-up
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(SMALL_SHOTS, batch_size=SMALL_BATCH, append_observables=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.launch_counts)
+    check_launched("small batches", launches, ["wide_32", "small"])
+    if launches["wide"]:
+        fail(f"small batches: batches of {SMALL_BATCH} shots took the 128-shot block of K1")
+    if out.shape != (SMALL_SHOTS, exported.program.num_outputs) or out.dtype != np.bool_:
+        fail("small batches: samples of the wrong shape or type")
+    dev_norm = sampler.last_norm_deviation
+    print(f"small batches: max norm deviation {dev_norm:.3e} (limit {NORM_TOL}); {SMALL_SHOTS} shots in "
+          f"{wall:.3f} s = {SMALL_SHOTS / wall:.0f} shots/s (batch {SMALL_BATCH})", flush=True)
+    if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
+        fail("small batches: norm deviation above the f32 tolerance")
+    check_means("small batches", out, exported)
     return launches
 
 
@@ -979,7 +1087,6 @@ def main() -> None:
 
     # ---- phase 12: 1-check cultivation in f32 mode -----------------------
     f32_paths.append(checks1_path(cultivation_checks1))
-    f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
 
     # ---- phase 13: the stage ablation ------------------------------------
     ablate_launches, ablate_timing, ablate_err = ablation_path(
@@ -995,6 +1102,10 @@ def main() -> None:
 
     # ---- phase 15: the stage split of the wide approximate kernel --------
     approx_ablation_path(circuit.load_state_probs().program.components[0].compiled_scalar_graphs[1], dev)
+
+    # ---- phase 16: small batches -----------------------------------------
+    f32_paths.append(small_batch_path(circuit))
+    f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed
@@ -1012,6 +1123,8 @@ def main() -> None:
               max(max_abs[c], per_term_err[c]), timing[c])
         for c in ("wide", "small")
     ]
+    entries.append(entry("sample_eval_wide_32", SOURCE, REPLACES["wide"], f32_launches["wide_32"],
+                         per_term_err["wide_32"], per_term_timing["wide_32"]))
     entries += [
         entry(f"sample_eval_{c}", SOURCE, PER_TERM_REPLACES[c], f32_launches[c], per_term_err[c],
               per_term_timing[c])
@@ -1029,7 +1142,7 @@ def main() -> None:
             e["bound_ms_as_exact"] = as_exact[e["name"]]
     entries.append(entry("sample_eval_ablate", SOURCE, ABLATE_REPLACES, ablate_launches["ablate"],
                          ablate_err, ablate_timing))
-    print(f"packed vs per-term at B={KERNEL_ROWS} on the timed rungs: " + ", ".join(
+    print(f"packed vs per-term on the timed rungs: " + ", ".join(
         f"{c} {per_term_timing[c][0]:.4f} ms ({per_term_timing[c][4]})" for c in per_term_timing), flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

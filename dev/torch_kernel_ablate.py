@@ -146,7 +146,7 @@ def ablate_rung(circuit, x, reps: int = 10) -> list[dict]:
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
     tables = SampleTables(circuit).to(x.device)
-    k1 = kernel.launch(tables, x, "wide")
+    k1 = kernel.launch(tables, x, "wide", _block_shots=128)  # the ablation's own block
     results = []
     for name, parities, factors in kernel.ABLATION_VARIANTS:
         got = kernel.ablate(tables, x, name)

@@ -1,5 +1,6 @@
-"""Time the small f32 kernel (K2) and the approximate exact kernels (K6, K7b)
-rung by rung on a CUDA card, for one tree or for two trees in turns.
+"""Time the small kernels (K2, K7a, K7b), the wide f32 kernel's two instances
+(K1) with the self-test's probe (K4), and the wide exact kernels (K5, K6) rung
+by rung on a CUDA card, for one tree or for two trees in turns.
 
     python3 dev/torch_time_rungs.py [--tree .] [--reps 20]
     python3 dev/torch_time_rungs.py --compare build/parent .
@@ -10,10 +11,11 @@ kernels) and prints both trees' means side by side: a change is compared with
 its parent inside one call, on one card. A tree is a checkout of this
 repository (``git archive <commit> | tar -x -C build/parent``).
 
-Timed with CUDA events after a warm-up: the exact kernels around ``--reps``
-launches; the small f32 kernel, whose launches are shorter than the host takes
-to enqueue one, each launch between its own pair of events, all queued behind a
-sleep on the card, so that the host's time stays outside the pairs:
+Timed with CUDA events after a warm-up: the wide exact kernels around
+``--reps`` launches; the others, whose launches may be shorter than the host
+takes to enqueue one, each launch between its own pair of events, all queued
+behind a sleep on the card, so that the host's time stays outside the pairs
+(device time):
 
 * ``small`` (``kernels.sample_eval.launch``) on every rung under 24 graphs of
   d3 distillation, 1-check and 2-check cultivation at 2^20 + 1 seeded rows,
@@ -23,9 +25,17 @@ sleep on the card, so that the host's time stays outside the pairs:
   of d3's state probabilities, on seeded rows and on the rows the path itself
   evaluates (f-bits drawn by ``CompiledStateProbs``' noise sampler, the first
   exported state tiled behind them), and on d3's three wide rungs;
-* ``approx_small`` on d3's two small approximate rungs, and ``exact_wide`` and
-  ``exact_small`` on 2-check cultivation's 307- and 4-graph rungs (these two
-  share code with the approximate kernels and must not move).
+* ``approx_small`` on d3's two small approximate rungs (device time),
+  ``exact_wide`` on 2-check cultivation's 307-graph rung, ``exact_small``
+  (device time) on its 4-graph rung at 2^20 + 1, 1024 and 16,384 rows and on
+  the state-probability norm rung;
+* ``wide`` (``kernels.sample_eval.launch``, device time) on 2-check
+  cultivation's 307-graph and d3's first 103-graph rung at 128 to 65,536 and
+  2^20 + 1 rows, as the tree dispatches it and, where the tree has the
+  private ``_block_shots``, each instance forced;
+* the self-test probe's four launches (K4), summed.
+
+A label that only one tree times is printed with the other's column empty.
 
 Needs a CUDA device; imports only the port.
 """
@@ -43,6 +53,7 @@ from torch_kernel_ablate import device_ms, state_prob_path_rows, time_ms  # besi
 
 ROWS = (1 << 20) + 1
 SMALL_BATCHES = (1024, 16384)
+SWEEP_ROWS = (128, 1024, 4096, 8192, 16384, 32768, 65536)
 
 
 def seeded_rows(n_params: int, count: int, seed: int):
@@ -54,6 +65,9 @@ def seeded_rows(n_params: int, count: int, seed: int):
 
 def measure(reps: int) -> dict:
     """{label: ms} of every timed launch, on the tree first on sys.path."""
+    import inspect
+
+    from tsim_tpu_torch.compile import sample_eval as f32_eval
     from tsim_tpu_torch.compile.exact_tables import ExactTables
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import exact_eval, sample_eval
@@ -83,8 +97,28 @@ def measure(reps: int) -> dict:
 
     def exact(label, t, x):
         fn = exact_eval.approx_partials if t.approximate else exact_eval.exact_partials
-        kind = f"{'approx' if t.approximate else 'exact'}_{exact_eval.configuration(t.num_graphs)}"
-        out[f"{kind} {label} G={t.num_graphs} P={t.n_params} B={x.shape[0]}"] = time_ms(lambda: fn(t, x), reps)
+        config = exact_eval.configuration(t.num_graphs)
+        kind = f"{'approx' if t.approximate else 'exact'}_{config}"
+        timer = time_ms if config == "wide" else device_ms
+        out[f"{kind} {label} G={t.num_graphs} P={t.n_params} B={x.shape[0]}"] = timer(lambda: fn(t, x), reps)
+
+    forced = "_block_shots" in inspect.signature(sample_eval.launch).parameters
+    for name, i in (("cultivation", 9), ("d3", 3)):
+        c = rungs[name][i]
+        t = SampleTables(c).to("cuda")
+        x = seeded_rows(c.n_params, ROWS, seed=80 + i)
+        for rows in (*SWEEP_ROWS, ROWS):
+            xs = x[:rows]
+            label = f"wide {name}[{i}] G={c.num_graphs} B={rows}"
+            out[label] = device_ms(lambda: sample_eval.launch(t, xs, "wide"), reps)
+            for shots in (32, 128) if forced else ():
+                out[f"{label} shots={shots}"] = device_ms(
+                    lambda: sample_eval.launch(t, xs, "wide", _block_shots=shots), reps)
+    probe, x = f32_eval.probe_inputs("cuda")
+    out["self-test probe, 4 launches summed"] = sum(
+        device_ms(lambda: sample_eval.launch(probe[c.removeprefix("per_term_")], x, c), reps)
+        for c in sample_eval.CONFIGURATIONS
+    )
 
     joint = d3.load_state_probs().program.components[0].compiled_scalar_graphs[1]
     exact("state probs, seeded rows", ExactTables(joint).to("cuda"), seeded_rows(joint.n_params, ROWS, seed=50))
@@ -96,7 +130,11 @@ def measure(reps: int) -> dict:
         exact(f"d3[{i}]", ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=60 + i))
     for i in (9, 1):
         c = rungs["cultivation"][i]
-        exact(f"cultivation[{i}]", ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=70 + i))
+        t, x = ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=70 + i)
+        for rows in (ROWS, *SMALL_BATCHES) if i == 1 else (ROWS,):
+            exact(f"cultivation[{i}]", t, x[:rows])
+    norm = d3.load_state_probs().program.components[0].compiled_scalar_graphs[0]
+    exact("state probs, norm rung", ExactTables(norm).to("cuda"), seeded_rows(norm.n_params, ROWS, seed=90))
     return out
 
 
@@ -127,12 +165,12 @@ def main() -> None:
                 sys.exit(f"FAIL: {tree}: {done.stdout[-2000:]}{done.stderr[-4000:]}")
             runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
         print(f"{'launch':70s} {'parent ms':>20s} {'change ms':>20s}  parent / change")
-        for label in runs[0]:
-            a, b = (runs[0][label], runs[3][label]), (runs[1].get(label), runs[2].get(label))
-            if None in b:
-                continue
-            ratio = (a[0] + a[1]) / (b[0] + b[1])
-            print(f"{label:70s} {a[0]:9.4f} / {a[1]:8.4f} {b[0]:9.4f} / {b[1]:8.4f}  {ratio:6.2f}")
+        labels = list(runs[0]) + [k for k in runs[1] if k not in runs[0]]
+        for label in labels:
+            a, b = (runs[0].get(label), runs[3].get(label)), (runs[1].get(label), runs[2].get(label))
+            cols = [f"{v[0]:9.4f} / {v[1]:8.4f}" if None not in v else f"{'':20s}" for v in (a, b)]
+            ratio = f"{(a[0] + a[1]) / (b[0] + b[1]):6.2f}" if None not in a + b else ""
+            print(f"{label:70s} {cols[0]} {cols[1]}  {ratio}")
         print(json.dumps({"card": card(), "parent": [runs[0], runs[3]], "change": [runs[1], runs[2]]}))
         return
 

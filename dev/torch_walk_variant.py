@@ -32,13 +32,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 ANCHOR = "\n// Wide configuration (K1;"
-CALL = "bitsliced::integer_stage<M, IB>(tb.lists, g0 + tid, bs_dyn, base, columns + tid, stride);"
-FFS_CALL = "integer_stage_ffs<M>(tb, g0 + tid, bs_dyn, columns + tid, stride);"
+CALL = "bitsliced::integer_stage<M, IB>(tb.lists, c0 + tid, bs_dyn, base, columns + tid, stride);"
+FFS_CALL = "integer_stage_ffs<M>(tb, c0 + tid, bs_dyn, columns + tid, stride);"
 FFS_STAGE = r'''
 // Variant: walk the set bits of the packed mask words with __ffs.
-__device__ __forceinline__ bitsliced::Entry ffs_word(const uint32_t* w_src, int W,
-                                                     const bitsliced::Entry* planes) {
-  bitsliced::Entry acc{};
+template <int NG>
+__device__ __forceinline__ bitsliced::Entry<NG> ffs_word(const uint32_t* w_src, int W,
+                                                         const bitsliced::Entry<NG>* planes) {
+  bitsliced::Entry<NG> acc{};
   for (int i = 0; i < W; ++i) {
     uint32_t m = __ldg(w_src + i);
     while (m) {
@@ -50,11 +51,11 @@ __device__ __forceinline__ bitsliced::Entry ffs_word(const uint32_t* w_src, int 
   return acc;
 }
 
-template <unsigned M>
+template <unsigned M, int NG>
 __device__ __forceinline__ void integer_stage_ffs(const Tables& tb, int g,
-                                                  const bitsliced::Entry* planes,
-                                                  bitsliced::Entry* col, int stride) {
-  using bitsliced::Entry;
+                                                  const bitsliced::Entry<NG>* planes,
+                                                  bitsliced::Entry<NG>* col, int stride) {
+  using Entry = bitsliced::Entry<NG>;
   using bitsliced::entry_xor;
   Entry tot[3] = {}, sgn{}, bare{};
   const int W = tb.W;
@@ -80,7 +81,7 @@ __device__ __forceinline__ void integer_stage_ffs(const Tables& tb, int g,
       const Entry p = ffs_word(mask(tb.psi_w, t), W, planes);
       const Entry q = ffs_word(mask(tb.phi_w, t), W, planes);
 #pragma unroll
-      for (int k = 0; k < bitsliced::kGroups; ++k) {
+      for (int k = 0; k < NG; ++k) {
         if (M & kT3) sgn.w[k] ^= (p.w[k] ^ pc) & (q.w[k] ^ qc);
         else bare.w[k] ^= p.w[k] ^ q.w[k];
       }

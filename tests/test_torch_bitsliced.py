@@ -10,9 +10,13 @@ parities for 32 shots at once from lists of each mask's set parameters
   the set bits; empty and dead rows have empty lists;
 * the plain numpy front end (bit planes, XOR by the lists, ripple-carry
   half-pi total, pi-product sign) is held against the ``x @ params mod 2``
-  route of the plain versions, ragged last groups included. The CUDA code is
+  route of the plain versions, ragged last groups included, on seeded rungs,
+  on every small rung (which the small f32 kernel K2 reads) and on every
+  exact small rung (which the small exact kernel K7a reads). The CUDA code is
   written from that function; on the card the kernels are held against the
   plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``);
+* the wide f32 kernel's instance (32 or 128 shots a block) follows the row
+  count;
 * rungs over 128 parameters, which the exact tables refused before, are held
   against ``tsim_tpu.compile.evaluate.evaluate_abs``: integer for integer on
   exact rungs (``test_torch_exact_eval._check_rung``), within 1e-6 on
@@ -36,7 +40,7 @@ from tests.test_torch_exact_eval import APPROX_RTOL, _check_rung
 from tsim_tpu_torch.compile import bit_lists, evaluate
 from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables
-from tsim_tpu_torch.compile.sample_eval import synthetic_rung
+from tsim_tpu_torch.compile.sample_eval import PROBE_ROWS, synthetic_rung
 from tsim_tpu_torch.compile.sample_tables import SampleTables, unpack_words
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.kernels import sample_eval as kernel
@@ -62,6 +66,12 @@ SMALL_RUNGS = (
     + [("cultivation", i) for i in range(2)]
     + [("cultivation_checks1", i) for i in range(8)]
 )
+
+
+# (program, rung) of every rung under 24 graphs without approximate
+# floatfactors of the three programs that evaluate exactly: the small exact
+# kernel (K7a) reads the same front end as K2.
+EXACT_SMALL_RUNGS = [("d3", 0), ("d3_state_probs", 0), ("cultivation", 0), ("cultivation", 1)]
 
 
 @pytest.fixture(scope="module")
@@ -223,6 +233,25 @@ def test_lists_name_the_set_bits_of_small_rungs(programs, program, rung):
     _check_front_end(csg, 65, seed=rung)
 
 
+def test_exact_small_rungs_are_all_listed(programs):
+    found = [
+        (name, i) for name in ("d3", "d3_state_probs", "cultivation") for i, c in enumerate(programs[name])
+        if exact_kernel.configuration(c.num_graphs) == "small" and not ExactTables(c).approximate
+    ]
+    assert found == EXACT_SMALL_RUNGS
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, 129])
+@pytest.mark.parametrize("program,rung", EXACT_SMALL_RUNGS, ids=[f"{p}[{r}]" for p, r in EXACT_SMALL_RUNGS])
+def test_plain_front_end_matches_parity_route_on_exact_small_rungs(programs, program, rung, batch):
+    """The small front end over the exact tables' lists gives the parities,
+    half-pi totals and pi-product signs of ``x @ params mod 2`` on every exact
+    small rung, term-free ones included, whole and ragged 32-shot groups."""
+    csg = programs[program][rung]
+    _check_lists(ExactTables(csg))
+    _check_front_end(csg, batch, seed=batch)
+
+
 @pytest.mark.parametrize("n_params", [160, 300])
 def test_small_rungs_of_many_parameters(n_params):
     """Small rungs past four packed words, with one- and two-byte indices."""
@@ -271,6 +300,31 @@ def test_all_zero_masks_have_empty_lists(programs):
     assert 0.4 < (counts == 0).mean() < 0.6
     assert int(counts.sum()) <= 482 * 307 + 307  # about 482 set bits a graph
     assert bit_lists.index_bytes(csg.n_params) == 1 and lists["bs_words"].shape[0] - bit_lists.AHEAD == 323
+
+
+def test_wide_instance_follows_the_row_count():
+    """Below WIDE_SMALL_ROWS rows "wide" takes 32 shots a block, from it on
+    128; a launch takes at least one row. The self-test's probe takes the
+    32-shot block, as a user's launch of its rows does."""
+    n = kernel.WIDE_SMALL_ROWS
+    assert kernel.WIDE_BLOCK_SHOTS == (32, 128) and 128 < n <= 1 << 20
+    assert [kernel.wide_block_shots(r) for r in (1, 31, 33, PROBE_ROWS, n - 1)] == [32] * 5
+    assert [kernel.wide_block_shots(r) for r in (n, n + 1, (1 << 20) + 1)] == [128] * 3
+    for rows in (0, -1):
+        with pytest.raises(ValueError, match="at least one row"):
+            kernel.wide_block_shots(rows)
+
+
+def test_only_wide_takes_a_forced_block(programs):
+    """The private ``_block_shots`` forces one of wide's two instances and
+    nothing else; it is refused before any device is touched."""
+    tables = SampleTables(programs["d3"][3])
+    x = torch.zeros((4, tables.n_params), dtype=torch.uint8)
+    for config, shots in (("small", 32), ("per_term_wide", 128), ("wide", 64), ("wide", 0)):
+        with pytest.raises(ValueError, match="block"):
+            kernel.launch(tables, x, config, _block_shots=shots)
+    with pytest.raises(ValueError, match="CUDA"):  # a valid instance reaches the device check
+        kernel.launch(tables, x, "wide", _block_shots=32)
 
 
 def _parity_route(rung, x: np.ndarray) -> dict:
@@ -424,7 +478,8 @@ def _imported_modules(path: Path) -> set:
 def test_the_port_imports_neither_jax_nor_tsim_tpu():
     files = [*sorted((REPO / "tsim_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
              REPO / "dev" / "torch_kernel_ablate.py", REPO / "dev" / "torch_profile_d3.py",
-             REPO / "dev" / "torch_walk_variant.py", REPO / "dev" / "torch_time_rungs.py"]
+             REPO / "dev" / "torch_walk_variant.py", REPO / "dev" / "torch_time_rungs.py",
+             REPO / "dev" / "torch_fma_variant.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):

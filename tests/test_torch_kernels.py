@@ -1,7 +1,7 @@
 """The CUDA kernels' wrappers, and each kernel against its plain version:
-the f32 sampling kernels (``sample_eval.cu``: bit-sliced K1/K2, per-term
-K3a/K3b, the self-test K4 and the stage ablation K8) and the exact kernels
-(``exact_eval.cu``, K6's stage split included).
+the f32 sampling kernels (``sample_eval.cu``: bit-sliced K1 in both its
+instances and K2, per-term K3a/K3b, the self-test K4 and the stage ablation
+K8) and the exact kernels (``exact_eval.cu``, K6's stage split included).
 
 This file imports no JAX, so the card's tests run on a machine without it:
 
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from tsim_tpu_torch.compile.evaluate import evaluate_abs
+from tsim_tpu_torch.compile.evaluate import evaluate_abs, exact_sum
 from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile import sample_eval
@@ -51,6 +51,11 @@ def cuda():
 def _rows(n_params, batch, seed, device="cpu"):
     x = np.random.default_rng(seed).integers(0, 2, size=(batch, n_params)).astype(np.uint8)
     return torch.from_numpy(x).to(device)
+
+
+def _wide_count(batch: int) -> str:
+    """The launch count of the instance of "wide" that ``batch`` rows take."""
+    return "wide_32" if kernel.wide_block_shots(batch) == 32 else "wide"
 
 
 def test_d3_rung_configurations(d3_rungs):
@@ -94,7 +99,7 @@ def test_kernel_matches_plain_version(d3_rungs, cuda, batch):
         torch.cuda.synchronize()
         scale = want.norm(dim=1, keepdim=True)
         assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (i, batch)
-    assert (kernel.launch_counts["wide"], kernel.launch_counts["small"]) == (3, 3)
+    assert (kernel.launch_counts[_wide_count(batch)], kernel.launch_counts["small"]) == (3, 3)
 
 
 def _f32_rungs():
@@ -130,7 +135,8 @@ def test_per_term_kernels_match_plain_version(cuda, batch):
             got = kernel.launch(tables, x, config)
             torch.cuda.synchronize()
             assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (name, config, batch)
-    assert min(kernel.launch_counts[c] for c in kernel.CONFIGURATIONS) > 0
+    launched = ("small", "per_term_small", "per_term_wide", _wide_count(batch))
+    assert min(kernel.launch_counts[c] for c in launched) > 0
 
 
 @pytest.mark.cuda
@@ -145,6 +151,34 @@ def test_wide_kernel_equals_per_term_wide(cuda, batch):
         tables = SampleTables(csg).to(cuda)
         x = _rows(tables.n_params, batch, seed=i, device=cuda)
         assert torch.equal(kernel.launch(tables, x, "wide"), kernel.launch(tables, x, "per_term_wide")), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 33, 1024])
+def test_wide_instances_are_bit_equal(cuda, batch):
+    """The 32-shot and the 128-shot block of "wide" add each shot's graphs in
+    the same order: equal bit for bit on every wide rung of d3 and 1- and
+    2-check cultivation, on the seeded one over 160 parameters and on a
+    seeded one of 600 graphs (past the 32-shot block's 512 threads, so its
+    integer stage takes two chunks), and the row count's own choice is one
+    of them."""
+    kernel.reset_launch_counts()
+    seen = 0
+    rungs = _f32_rungs() + [("seeded G=600 P=40", synthetic_rung(13, 600, 40, (6, 4, 4, 2)))]
+    for i, (name, csg) in enumerate(rungs):
+        if kernel.layout(csg.num_graphs) != "wide":
+            continue
+        tables = SampleTables(csg).to(cuda)
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        small = kernel.launch(tables, x, "wide", _block_shots=32)
+        large = kernel.launch(tables, x, "wide", _block_shots=128)
+        assert torch.equal(small, large), name
+        assert torch.equal(kernel.launch(tables, x, "wide"), small), name
+        want, mass = sample_product_sum_reference(tables, x, with_mass=True)
+        assert ((small - want).abs() <= ATOL + RTOL * mass[:, None]).all(), name
+        seen += 1
+    assert seen == 3 + 1 + 8 + 1 + 1
+    assert kernel.launch_counts["wide_32"] == 2 * seen and kernel.launch_counts["wide"] == seen
 
 
 @pytest.mark.cuda
@@ -288,6 +322,53 @@ def test_exact_kernels_take_rows_over_128_parameters(cuda, n_params, batch):
             else:
                 assert torch.equal(got, want), (graphs, batch)
     assert min(exact_kernel.launch_counts[k] for k in exact_kernel.KERNELS) > 0
+
+
+def _canonical(coeffs: torch.Tensor, power: torch.Tensor):
+    """(4, B) coefficients and (B,) power of exact values, with the common
+    powers of two taken out of the coefficients (a zero value has power 0):
+    two representations of one value become equal."""
+    c, p = coeffs.to(torch.int64).clone(), power.to(torch.int64).clone()
+    zero = (c == 0).all(dim=0)
+    p[zero] = 0
+    while True:
+        even = ((c & 1) == 0).all(dim=0) & ~zero
+        if not even.any():
+            return c, p
+        c[:, even] >>= 1
+        p[even] += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 129, 4097])
+def test_exact_small_equals_plain_exact_evaluator(exact_rungs, cuda, batch):
+    """K7a, whose parities come from the small front end it shares with K2:
+    its exact sums equal the plain exact evaluator's integer for integer and
+    its magnitudes bit for bit, on every exact rung under 24 graphs of the
+    committed programs (1-check cultivation's too) and on seeded rungs of all
+    four families over 130, 200 and 300 parameters (two-byte list indices),
+    whole and ragged blocks."""
+    rungs = [(n, c) for n, c in exact_rungs if c.num_graphs < kernel.SMALL_G_CUTOFF]
+    checks1 = cultivation_d3(p=0.001, checks=1).load().program.components[0].compiled_scalar_graphs
+    rungs += [(f"cultivation1[{i}]", c) for i, c in enumerate(checks1) if c.num_graphs < kernel.SMALL_G_CUTOFF]
+    rungs += [(f"seeded P={p}", synthetic_rung(p + 5, 5, p, (6, 4, 4, 2))) for p in (130, 200, 300)]
+    exact_kernel.reset_launch_counts()
+    seen = 0
+    for i, (name, csg) in enumerate(rungs):
+        tables = ExactTables(csg).to(cuda)
+        if tables.approximate:
+            continue
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        out_c, out_p = exact_kernel.exact_partials(tables, x)
+        assert out_c.shape == (1, batch, 4)
+        want = exact_sum(tables.circuit(), x)
+        got_c, got_p = _canonical(out_c[0].T, out_p[0])
+        want_c, want_p = _canonical(want.coeffs, want.power)
+        assert torch.equal(got_c, want_c) and torch.equal(got_p, want_p), (name, batch)
+        assert torch.equal(evaluate_abs_exact(tables, x), evaluate_abs(tables.circuit(), x)), (name, batch)
+        seen += 1
+    assert seen == 4 + 8 + 3
+    assert exact_kernel.launch_counts["exact_small"] == 2 * seen
 
 
 @pytest.mark.cuda

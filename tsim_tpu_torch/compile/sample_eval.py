@@ -288,10 +288,11 @@ def probe_inputs(device) -> tuple[dict, torch.Tensor]:
 
 
 def self_test(device) -> dict:
-    """Launch every f32 configuration at the probe's shape and hold it
-    against the plain version; return {configuration: max error relative
-    to the row's mass}. Raises RuntimeError naming the first configuration
-    that disagrees; nothing switches configuration."""
+    """Launch every f32 configuration at the probe's shape, each dispatched
+    as a user's launch of PROBE_ROWS rows is ("wide" takes its 32-shot
+    block), and hold it against the plain version; return {configuration:
+    max error relative to the row's mass}. Raises RuntimeError naming the
+    first configuration that disagrees; nothing switches configuration."""
     tables, rows = probe_inputs(device)
     errors = {}
     for config in _kernel.CONFIGURATIONS:

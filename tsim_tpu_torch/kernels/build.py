@@ -104,10 +104,12 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tsim_sample_eval.argtypes = [
-            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp,
+            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,
         ]
         lib.tsim_sample_eval.restype = i32
-        lib.tsim_sample_eval_ablate.argtypes = lib.tsim_sample_eval.argtypes
+        lib.tsim_sample_eval_ablate.argtypes = [
+            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp,
+        ]
         lib.tsim_sample_eval_ablate.restype = i32
         lib.tsim_exact_eval.argtypes = [
             vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,

@@ -1,18 +1,20 @@
 // Bit-sliced parity front end of the wide kernels (sample_eval.cu `wide`,
-// exact_eval.cu `exact_wide` and `approx_wide`); sample_eval.cu `small` uses
-// its planes and lists with a thread a mask (see there).
+// exact_eval.cu `exact_wide` and `approx_wide`), and of the small ones
+// (sample_eval.cu `small`, exact_eval.cu `exact_small`), which use its planes
+// and lists with a thread a mask (small_front_end, at the end).
 //
 // A parity is x . mask mod 2 for a shot's 0/1 parameter row x and a term's
 // parameter mask. The TPU kernels form it as a matrix-unit dot; the first
 // Hopper kernels formed it per shot as the popcount parity of (x & mask)
 // over packed words, and were bound by the popcount unit, which runs at a
-// quarter of the int32 rate. Here a block takes 128 shots, four groups of
-// 32, and first turns their rows into bit planes in shared memory: plane p
-// holds parameter p of all 128 shots, one shot a bit, one word a group. The
-// parity of a mask for all 128 shots at once is then the XOR of the planes of
-// the mask's set parameters: one 16-byte shared memory load and four XORs per
-// set parameter per 128 shots, no popcount, and nothing at all for the
-// all-zero masks that pad the tables.
+// quarter of the int32 rate. Here a block takes NG groups of 32 shots (NG = 4,
+// 128 shots; `wide` also has an instance of NG = 1 for launches of few rows,
+// see sample_eval.cu) and first turns their rows into bit planes in shared
+// memory: plane p holds parameter p of the block's shots, one shot a bit, one
+// word a group. The parity of a mask for all the block's shots at once is
+// then the XOR of the planes of the mask's set parameters: one shared memory
+// load of NG words and NG XORs per set parameter per block, no popcount, and
+// nothing at all for the all-zero masks that pad the tables.
 //
 // A thread owns one graph. It walks a host-built stream of the set
 // parameters of the graph's masks (compile/bit_lists.py). The stream has the
@@ -44,9 +46,9 @@
 // follows turns the block round: there a lane is a shot of each group (bit
 // `lane` of every word) and a warp takes one graph at a time, so whatever
 // belongs to the graph (table entries, rotation indices, the entries of its
-// column) is the same for all 32 lanes and is loaded once for 128 shots, a
-// thread carries four shots' running values, and no reduction over graphs
-// crosses lanes.
+// column) is the same for all 32 lanes and is loaded once for the block's
+// shots, a thread carries NG shots' running values, and no reduction over
+// graphs crosses lanes.
 
 #pragma once
 
@@ -55,8 +57,8 @@
 
 namespace bitsliced {
 
-constexpr int kGroups = 4;                // 32-shot groups per block: NG
-constexpr int kShots = 32 * kGroups;      // shots per block
+constexpr int kGroups = 4;                // 32-shot groups per block of the 128-shot instances
+constexpr int kShots = 32 * kGroups;      // their shots per block
 constexpr int kAhead = 4;                 // words of the list stream loaded ahead of their use
 constexpr int kSliced = 5;                // entries a column holds beside its parity entries
 
@@ -92,11 +94,22 @@ inline Lists make_lists(const int32_t* p, int G, int T1, int T2, int T3, int T4)
   return bl;
 }
 
-// An entry is kGroups words, one per 32-shot group of the block, 16 bytes
-// aligned, read and written with one vector access.
-struct alignas(16) Entry {
-  uint32_t w[kGroups];
+// An entry is NG words, one per 32-shot group of the block, aligned to its
+// size (16 bytes for NG = 4), read and written with one vector access.
+template <int NG>
+struct alignas(4 * NG) Entry {
+  static_assert(NG == 1 || NG == 4, "a block takes 32 or 128 shots");
+  uint32_t w[NG];
 };
+
+// The kernel's dynamic shared memory as entries of NG words. One byte array
+// serves every instance: an extern __shared__ array may not change its type
+// between the kernels of a file.
+template <int NG>
+__device__ __forceinline__ Entry<NG>* dynamic_entries() {
+  extern __shared__ __align__(16) unsigned char bs_dyn_bytes[];
+  return reinterpret_cast<Entry<NG>*>(bs_dyn_bytes);
+}
 
 // The front end's dynamic shared memory, in entries: P planes and the zero
 // plane; the R + 3 words of `base`, padded to whole entries; then one column
@@ -105,45 +118,49 @@ struct alignas(16) Entry {
 __host__ __device__ inline int base_words(int T1, int T2, int T3, int T4) {
   return T1 + T2 + 2 * T3 + 2 * T4 + 3;
 }
+template <int NG>
 __host__ __device__ inline size_t column_offset(int P, int T1, int T2, int T3, int T4) {
-  return (size_t)P + 1 + (base_words(T1, T2, T3, T4) + kGroups - 1) / kGroups;
+  return (size_t)P + 1 + (base_words(T1, T2, T3, T4) + NG - 1) / NG;
 }
+template <int NG>
 inline size_t shared_bytes(int P, int T1, int T2, int T3, int T4, int threads) {
-  return sizeof(Entry) *
-         (column_offset(P, T1, T2, T3, T4) + (size_t)(T1 + 2 * T4 + kSliced) * threads);
+  return sizeof(Entry<NG>) *
+         (column_offset<NG>(P, T1, T2, T3, T4) + (size_t)(T1 + 2 * T4 + kSliced) * threads);
 }
 
 // planes[p], p < P: bit s of word k = parameter p of shot b0 + 32 k + s, 0
 // past the batch's end; planes[P] = 0; then the copy of `base`. Lane s reads
 // byte p of its group's row and one ballot gathers the 32 bits; the block's
 // warps share the P parameters. The caller synchronises.
+template <int NG>
 __device__ __forceinline__ void build_planes(const uint8_t* __restrict__ x, long long B, int P,
-                                             long long b0, const Lists& bl, Entry* planes) {
+                                             long long b0, const Lists& bl, Entry<NG>* planes) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   for (int p = warp; p < P; p += warps) {
-    Entry e;
+    Entry<NG> e;
 #pragma unroll
-    for (int k = 0; k < kGroups; ++k) {
+    for (int k = 0; k < NG; ++k) {
       const long long b = b0 + 32 * k + lane;
       e.w[k] = __ballot_sync(0xffffffffu, b < B && (x[b * P + p] & 1));
     }
     if (lane == 0) planes[p] = e;
   }
-  if (threadIdx.x < kGroups) planes[P].w[threadIdx.x] = 0u;
+  if (threadIdx.x < NG) planes[P].w[threadIdx.x] = 0u;
   uint32_t* base = planes[P + 1].w;
   const int n = base_words(bl.T1, bl.T2, bl.T3, bl.T4);
   for (int i = threadIdx.x; i < n; i += blockDim.x) base[i] = (uint32_t)__ldg(bl.base + i);
 }
 
-__device__ __forceinline__ void entry_xor(Entry& a, const Entry& b) {
+template <int NG>
+__device__ __forceinline__ void entry_xor(Entry<NG>& a, const Entry<NG>& b) {
 #pragma unroll
-  for (int k = 0; k < kGroups; ++k) a.w[k] ^= b.w[k];
+  for (int k = 0; k < NG; ++k) a.w[k] ^= b.w[k];
 }
 
 // acc ^= the planes that one word of a list names: 4 indices of one byte, or 2
 // of two bytes (IB).
-template <int IB>
-__device__ __forceinline__ void xor_listed(Entry& acc, const Entry* planes, uint32_t e) {
+template <int IB, int NG>
+__device__ __forceinline__ void xor_listed(Entry<NG>& acc, const Entry<NG>* planes, uint32_t e) {
   if (IB == 1) {
     entry_xor(acc, planes[e & 255u]);
     entry_xor(acc, planes[(e >> 8) & 255u]);
@@ -159,10 +176,10 @@ __device__ __forceinline__ void xor_listed(Entry& acc, const Entry* planes, uint
 // always in registers, loaded kAhead words before their use, whatever rows
 // they belong to: rows are a few words long, so a load started at its row's
 // start would be waited for in full. The stream ends in kAhead padding words.
-template <int IB>
+template <int IB, int NG>
 struct Walker {
   const Lists& bl;
-  const Entry* planes;
+  const Entry<NG>* planes;
   const int32_t* base;    // the block's copy of bl.base in shared memory
   const int32_t* end;     // the entry of `base` for the row after the next
   const int32_t* meta;    // the next row's meta entry for graph g
@@ -170,7 +187,7 @@ struct Walker {
   uint32_t queue[kAhead];
   int g, pos, hi;  // the next row's first word and the row after's
 
-  __device__ __forceinline__ Walker(const Lists& lists, int graph, const Entry* shared_planes,
+  __device__ __forceinline__ Walker(const Lists& lists, int graph, const Entry<NG>* shared_planes,
                                     const int32_t* shared_base)
       : bl(lists), planes(shared_planes), base(shared_base), end(shared_base + 1),
         meta(lists.meta + graph), g(graph), pos(0), hi(shared_base[1]) {
@@ -196,8 +213,8 @@ struct Walker {
   __device__ __forceinline__ int aux() const { return __ldg(meta) >> 16; }
   // Parity entry of the next row (bit s of word k = shot 32 k + s); moves on
   // to the row after.
-  __device__ __forceinline__ Entry word() {
-    Entry acc{};
+  __device__ __forceinline__ Entry<NG> word() {
+    Entry<NG> acc{};
     for (; pos < hi; ++pos, ahead += bl.G) {
       const uint32_t e = queue[0];
 #pragma unroll
@@ -224,9 +241,10 @@ __device__ __forceinline__ void ripple_add_word(uint32_t& t0, uint32_t& t1, uint
 }
 
 // tot += c * w mod 8 for every shot of the block.
-__device__ __forceinline__ void ripple_add(Entry (&tot)[3], const Entry& w, int c) {
+template <int NG>
+__device__ __forceinline__ void ripple_add(Entry<NG> (&tot)[3], const Entry<NG>& w, int c) {
 #pragma unroll
-  for (int k = 0; k < kGroups; ++k) ripple_add_word(tot[0].w[k], tot[1].w[k], tot[2].w[k], w.w[k], c);
+  for (int k = 0; k < NG; ++k) ripple_add_word(tot[0].w[k], tot[1].w[k], tot[2].w[k], w.w[k], c);
 }
 
 // The integer stage of graph g under stage mask M, IB bytes an index, with
@@ -236,15 +254,16 @@ __device__ __forceinline__ void ripple_add(Entry (&tot)[3], const Entry& w, int 
 // phase-pair parities at T1 + 2t (alpha) and T1 + 2t + 1 (beta), then kSliced
 // entries: the three bit planes of the half-pi total mod 8, the pi-product
 // sign, and the XOR of the parities formed without their factors.
-template <unsigned M, int IB>
-__device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entry* planes,
-                                              const int32_t* base, Entry* col, int stride) {
-  Entry tot[3] = {}, sgn{}, bare{};
+template <unsigned M, int IB, int NG>
+__device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entry<NG>* planes,
+                                              const int32_t* base, Entry<NG>* col, int stride) {
+  using E = Entry<NG>;
+  E tot[3] = {}, sgn{}, bare{};
   const int R = bl.T1 + bl.T2 + 2 * bl.T3 + 2 * bl.T4;
-  Walker<IB> walk(bl, g, planes, base);
+  Walker<IB, NG> walk(bl, g, planes, base);
   if (M & kP1) {
     for (int t = 0; t < bl.T1; ++t) {
-      const Entry w = walk.word();
+      const E w = walk.word();
       if (M & kT1) col[t * stride] = w; else entry_xor(bare, w);
     }
   }
@@ -253,7 +272,7 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
     walk.seek(bl.T1);
     for (int r = 0; r < n; ++r) {
       const int coeff = walk.aux();
-      const Entry w = walk.word();
+      const E w = walk.word();
       if (M & kT2) ripple_add(tot, w, coeff); else entry_xor(bare, w);
     }
   }
@@ -262,11 +281,11 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
     walk.seek(bl.T1 + bl.T2);
     for (int r = 0; r < n; ++r) {
       const uint32_t pc = 0u - (uint32_t)(walk.aux() & 1);
-      const Entry p = walk.word();
+      const E p = walk.word();
       const uint32_t qc = 0u - (uint32_t)(walk.aux() & 1);
-      const Entry q = walk.word();
+      const E q = walk.word();
 #pragma unroll
-      for (int k = 0; k < kGroups; ++k) {
+      for (int k = 0; k < NG; ++k) {
         if (M & kT3) sgn.w[k] ^= (p.w[k] ^ pc) & (q.w[k] ^ qc);
         else bare.w[k] ^= p.w[k] ^ q.w[k];
       }
@@ -275,8 +294,8 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
   if (M & kP4) {
     walk.seek(bl.T1 + bl.T2 + 2 * bl.T3);
     for (int t = 0; t < bl.T4; ++t) {
-      const Entry a = walk.word();
-      const Entry b = walk.word();
+      const E a = walk.word();
+      const E b = walk.word();
       if (M & kT4) {
         col[(bl.T1 + 2 * t) * stride] = a;
         col[(bl.T1 + 2 * t + 1) * stride] = b;
@@ -286,7 +305,7 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
       }
     }
   }
-  Entry* sliced = col + (bl.T1 + 2 * bl.T4) * stride;
+  E* sliced = col + (bl.T1 + 2 * bl.T4) * stride;
   sliced[0] = tot[0];
   sliced[stride] = tot[1];
   sliced[2 * stride] = tot[2];
@@ -294,37 +313,137 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
   sliced[4 * stride] = bare;
 }
 
-// The values of one graph for a thread's kGroups shots (shot 32 k + lane of
-// the block for k < kGroups), read from the graph's column: bit `lane` of
-// word k of every entry. The parity source of the per-shot stage.
+// The values of one graph for a thread's NG shots (shot 32 k + lane of the
+// block for k < NG), read from the graph's column: bit `lane` of word k of
+// every entry. The parity source of the per-shot stage.
+template <int NG>
 struct Column {
-  const Entry* col;  // the graph's column, entries `stride` apart
+  const Entry<NG>* col;  // the graph's column, entries `stride` apart
   int stride, T1, T4, lane;
 
-  __device__ __forceinline__ void bits(int entry, int (&p)[kGroups]) const {
-    const Entry e = col[entry * stride];
+  __device__ __forceinline__ void bits(int entry, int (&p)[NG]) const {
+    const Entry<NG> e = col[entry * stride];
 #pragma unroll
-    for (int k = 0; k < kGroups; ++k) p[k] = (e.w[k] >> lane) & 1;
+    for (int k = 0; k < NG; ++k) p[k] = (e.w[k] >> lane) & 1;
   }
-  __device__ __forceinline__ void node(int t, int (&p)[kGroups]) const { bits(t, p); }
-  __device__ __forceinline__ void halfpi(int (&tot)[kGroups]) const {
-    int hi[kGroups];
+  __device__ __forceinline__ void node(int t, int (&p)[NG]) const { bits(t, p); }
+  __device__ __forceinline__ void halfpi(int (&tot)[NG]) const {
+    int hi[NG];
     bits(T1 + 2 * T4, tot);
 #pragma unroll
     for (int j = 1; j < 3; ++j) {
       bits(T1 + 2 * T4 + j, hi);
 #pragma unroll
-      for (int k = 0; k < kGroups; ++k) tot[k] |= hi[k] << j;
+      for (int k = 0; k < NG; ++k) tot[k] |= hi[k] << j;
     }
   }
-  __device__ __forceinline__ void sign(int (&sgn)[kGroups]) const { bits(T1 + 2 * T4 + 3, sgn); }
-  __device__ __forceinline__ void pair(int t, int (&p)[kGroups], int (&q)[kGroups]) const {
+  __device__ __forceinline__ void sign(int (&sgn)[NG]) const { bits(T1 + 2 * T4 + 3, sgn); }
+  __device__ __forceinline__ void pair(int t, int (&p)[NG], int (&q)[NG]) const {
     bits(T1 + 2 * t, p);
     bits(T1 + 2 * t + 1, q);
   }
   __device__ __forceinline__ int bare(int k) const {
     return (col[(T1 + 2 * T4 + 4) * stride].w[k] >> lane) & 1;
   }
+};
+
+// ---------------------------------------------------------- the small kernels
+//
+// With fewer than 24 graphs a thread a graph would leave most of the block
+// idle in the integer stage. The small kernels (sample_eval.cu `small`, K2;
+// exact_eval.cu `exact_small`, K7a) take kShots shots a block, a thread a
+// shot, and share this front end. It builds the planes; then a thread is a
+// mask: the R * G list rows of the rung are dealt out over the block, and
+// each thread XORs the planes its row lists for all 128 shots and leaves the
+// parity entry in shared memory (row r of graph g at rows[r * G + g]). Then a
+// thread is one word of one graph: it folds the graph's half-pi rows into the
+// three bit planes of the total mod 8 (rows[(R + j) * G + g], j < 3; mod 8 is
+// all that either product reads) and its pi-product rows into the sign
+// (rows[(R + 3) * G + g]). A rung without terms (R = 0) builds nothing. After
+// it a thread is a shot and walks all graphs in order, reading its bits
+// through ShotRows.
+
+// Dynamic shared memory of a small kernel's block, in bytes: the planes and
+// the lists' row table, then R + 4 entries a graph; none without terms.
+inline size_t small_shared_bytes(int P, int G, int T1, int T2, int T3, int T4) {
+  const int R = T1 + T2 + 2 * T3 + 2 * T4;
+  if (R == 0) return 0;
+  return sizeof(Entry<kGroups>) * (column_offset<kGroups>(P, T1, T2, T3, T4) + (size_t)(R + 4) * G);
+}
+
+// The small front end of the block whose first shot is b0, IB bytes an index
+// of the lists, in the dynamic shared memory `smem`; returns its rows. Every
+// thread of the block calls it: it synchronises the block.
+template <int IB>
+__device__ __forceinline__ const Entry<kGroups>* small_front_end(const uint8_t* __restrict__ x,
+                                                                 long long B, int P, long long b0,
+                                                                 const Lists& bl,
+                                                                 Entry<kGroups>* smem) {
+  using E = Entry<kGroups>;
+  const int tid = threadIdx.x, G = bl.G;
+  const int R = bl.T1 + bl.T2 + 2 * bl.T3 + 2 * bl.T4;
+  const int32_t* base = reinterpret_cast<const int32_t*>(smem + P + 1);
+  E* rows = smem + column_offset<kGroups>(P, bl.T1, bl.T2, bl.T3, bl.T4);
+  if (R == 0) return rows;
+  build_planes(x, B, P, b0, bl, smem);
+  __syncthreads();
+  for (int i = tid; i < R * G; i += blockDim.x) {
+    const int r = i / G, g = i - r * G;
+    const int lo = base[r], hi = base[r + 1];
+    const uint32_t* word = bl.words + (long long)lo * G + g;
+    E acc{};
+    for (int j = lo; j < hi; ++j, word += G) xor_listed<IB>(acc, smem, __ldg(word));
+    rows[i] = acc;
+  }
+  __syncthreads();
+  const int live2 = base[R + 1], live3 = base[R + 2];
+  for (int i = tid; i < G * kGroups; i += blockDim.x) {
+    const int g = i / kGroups, k = i - g * kGroups;
+    uint32_t t0 = 0u, t1 = 0u, t2 = 0u, sgn = 0u;
+    for (int r = bl.T1; r < bl.T1 + live2; ++r)
+      ripple_add_word(t0, t1, t2, rows[r * G + g].w[k], __ldg(bl.meta + r * G + g) >> 16);
+    for (int r = bl.T1 + bl.T2; r < bl.T1 + bl.T2 + 2 * live3; r += 2) {
+      const uint32_t pc = 0u - (uint32_t)((__ldg(bl.meta + r * G + g) >> 16) & 1);
+      const uint32_t qc = 0u - (uint32_t)((__ldg(bl.meta + (r + 1) * G + g) >> 16) & 1);
+      sgn ^= (rows[r * G + g].w[k] ^ pc) & (rows[(r + 1) * G + g].w[k] ^ qc);
+    }
+    rows[R * G + g].w[k] = t0;
+    rows[(R + 1) * G + g].w[k] = t1;
+    rows[(R + 2) * G + g].w[k] = t2;
+    rows[(R + 3) * G + g].w[k] = sgn;
+  }
+  __syncthreads();
+  return rows;
+}
+
+// One shot's parities of graph g, read from the rows that small_front_end
+// left in shared memory: bit `lane` of word `group` of row r's entry; the
+// graph's half-pi total (three bit planes) and pi-product sign follow the R
+// list rows. The parity source of the small kernels' per-shot stage.
+struct ShotRows {
+  const Entry<kGroups>* rows;
+  int G, g, T1, R, pairs, group, lane;  // pairs: the first phase-pair row
+
+  // The source of graph g for thread `tid` of the block.
+  __device__ __forceinline__ ShotRows(const Entry<kGroups>* shared_rows, const Lists& bl, int graph,
+                                      int tid)
+      : rows(shared_rows), G(bl.G), g(graph), T1(bl.T1),
+        R(bl.T1 + bl.T2 + 2 * bl.T3 + 2 * bl.T4), pairs(bl.T1 + bl.T2 + 2 * bl.T3),
+        group(tid >> 5), lane(tid & 31) {}
+
+  __device__ __forceinline__ int bit(int row) const {
+    return (int)((rows[row * G + g].w[group] >> lane) & 1u);
+  }
+  __device__ __forceinline__ void node(int t, int (&p)[1]) const { p[0] = bit(t); }
+  __device__ __forceinline__ void halfpi(int (&tot)[1]) const {
+    tot[0] = bit(R) | bit(R + 1) << 1 | bit(R + 2) << 2;
+  }
+  __device__ __forceinline__ void sign(int (&sgn)[1]) const { sgn[0] = bit(R + 3); }
+  __device__ __forceinline__ void pair(int t, int (&p)[1], int (&q)[1]) const {
+    p[0] = bit(pairs + 2 * t);
+    q[0] = bit(pairs + 2 * t + 1);
+  }
+  __device__ __forceinline__ int bare(int) const { return 0; }
 };
 
 }  // namespace bitsliced

@@ -11,10 +11,12 @@
 //   _kernel_approx_t (K7b, small-G layout)   -> approx_small
 // Their shared body is _product_body / _product_body_t. On the TPU every
 // parity is a matrix-unit dot of the shot's 0/1 parameters against the
-// term's mask. Here the wide kernels form parities bit-sliced over the 128
-// shots of a block (bitsliced.cuh: bit planes in shared memory, an XOR per
-// listed mask bit per 32 shots, any number of parameters), and the small ones
-// as __popc(x & w) & 1 over the row's packed words, held in registers up to
+// term's mask. Here the wide kernels and the small exact one form parities
+// bit-sliced over the 128 shots of a block (bitsliced.cuh: bit planes in
+// shared memory, an XOR per listed mask bit per 32 shots, any number of
+// parameters; the small exact kernel through the small front end it shares
+// with sample_eval.cu's small f32 kernel), and the small approximate one as
+// __popc(x & w) & 1 over the row's packed words, held in registers up to
 // four words and in shared memory beyond (word i of thread t at
 // xs[i * blockDim.x + t], the block shrunk for long rows).
 //
@@ -78,7 +80,13 @@
 // no work that depends on the data, and so takes the same time on rows
 // whose products mostly vanish as on rows where few do.
 // "small" (G < 24) gives each thread one shot and loops over the graphs; the
-// threads of a warp read the same table entry, which L1 broadcasts.
+// threads of a warp read the same table entry, which L1 broadcasts. The exact
+// one (K7a) first forms the parities of its block's 128 shots bit-sliced, a
+// thread a (row, graph) mask and then a thread a (graph, 32-shot group) word
+// for the half-pi total and the pi-product sign (bitsliced::small_front_end),
+// so that the per-shot stage reads one bit a term and no lane repeats a
+// parity's table loads. What is left per shot is the product itself: a few
+// dozen int32 operations per graph and live term, as in the wide kernel.
 //
 // Build with -O3 and without --use_fast_math or -ftz.
 
@@ -296,7 +304,7 @@ struct Row<0> {
   }
 };
 
-// Parities of one shot by popcount over its packed row (K7a, K7b).
+// Parities of one shot by popcount over its packed row (K7b).
 template <class RowT>
 struct PopcountParities {
   const Tables& tb;
@@ -363,8 +371,8 @@ __device__ __forceinline__ void pair_terms(const Tables& tb, int g, const Pariti
 }
 
 // _product_body for graph g and NS shots: v[k] = the exact product of shot k;
-// `par` gives the shots' parities (PopcountParities, or bitsliced::Column
-// after the integer stage).
+// `par` gives the shots' parities (bitsliced::Column after the wide integer
+// stage, bitsliced::ShotRows after the small front end).
 template <int NS, class Parities>
 __device__ __forceinline__ void product(const Tables& tb, int g, const Parities& par,
                                         Zw (&v)[NS]) {
@@ -537,13 +545,13 @@ __global__ void __launch_bounds__(kMaxTile)
                int32_t* __restrict__ out_c, int32_t* __restrict__ out_p) {
   constexpr int NG = bitsliced::kGroups, NS = bitsliced::kShots;
   __shared__ Zw red[kMaxTile / 32][NS];
-  extern __shared__ bitsliced::Entry bs_dyn[];
+  bitsliced::Entry<NG>* bs_dyn = bitsliced::dynamic_entries<NG>();
   const long long b0 = (long long)blockIdx.x * NS;
   const int tid = threadIdx.x, stride = blockDim.x, tile = blockIdx.y;
   const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
   const int g0 = tile * stride;
   const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
-  bitsliced::Entry* columns = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
+  bitsliced::Entry<NG>* columns = bs_dyn + bitsliced::column_offset<NG>(P, tb.T1, tb.T2, tb.T3, tb.T4);
   bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
   __syncthreads();
   if (g0 + tid < tb.G)
@@ -557,7 +565,7 @@ __global__ void __launch_bounds__(kMaxTile)
   const int n = min(stride, tb.G - g0);
   for (int j = warp; j < n; j += warps) {
     Zw v[NG];
-    const bitsliced::Column par{columns + j, stride, tb.T1, tb.T4, lane};
+    const bitsliced::Column<NG> par{columns + j, stride, tb.T1, tb.T4, lane};
     product<NG>(tb, g0 + j, par, v);
 #pragma unroll
     for (int k = 0; k < NG; ++k) add_exact(acc[k], v[k]);
@@ -586,13 +594,13 @@ __global__ void __launch_bounds__(kMaxTile)
   constexpr int NG = bitsliced::kGroups, NS = bitsliced::kShots;
   __shared__ float red[kMaxTile / 32][NS][2];
   __shared__ float unit[32], mag[kMagWords];
-  extern __shared__ bitsliced::Entry bs_dyn[];
+  bitsliced::Entry<NG>* bs_dyn = bitsliced::dynamic_entries<NG>();
   const long long b0 = (long long)blockIdx.x * NS;
   const int tid = threadIdx.x, stride = blockDim.x, tile = blockIdx.y;
   const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
   const int g0 = tile * stride;
   const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
-  bitsliced::Entry* columns = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
+  bitsliced::Entry<NG>* columns = bs_dyn + bitsliced::column_offset<NG>(P, tb.T1, tb.T2, tb.T3, tb.T4);
   bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
   for (int i = tid; i < 32; i += stride) unit[i] = __ldg(tb.cf_unit + i);
   for (int i = tid; i < 2 * (2 * tb.EB + 1); i += stride) mag[i] = __ldg(tb.cf_mag + i);
@@ -606,7 +614,7 @@ __global__ void __launch_bounds__(kMaxTile)
   for (int k = 0; k < NG; ++k) sre[k] = sim[k] = 0.0f;
   const int n = min(stride, tb.G - g0);
   for (int j = warp; j < n; j += warps) {
-    const bitsliced::Column par{columns + j, stride, tb.T1, tb.T4, lane};
+    const bitsliced::Column<NG> par{columns + j, stride, tb.T1, tb.T4, lane};
     closed_form_add<M, NG>(tb, g0 + j, par, unit, mag, sre, sim);
   }
 #pragma unroll
@@ -625,20 +633,26 @@ __global__ void __launch_bounds__(kMaxTile)
   }
 }
 
-// K7a: one thread per shot, looping over all graphs; out_c[b][4], out_p[b].
-// W = 0: the row's words live in dynamic shared memory (any number).
-template <int W>
-__global__ void __launch_bounds__(kSmallThreads)
+// K7a: block = 128 shots = 128 threads, IB bytes an index of the lists. The
+// small front end (bitsliced.cuh, shared with sample_eval.cu's small f32
+// kernel) forms the block's parities bit-sliced; then a thread is a shot and
+// walks all graphs in order: _product_body's steps (product<1>) on bits read
+// from the front end's rows, then the aligned add. Dynamic shared memory:
+// bitsliced::small_shared_bytes. out_c[b][4], out_p[b].
+template <int IB>
+__global__ void __launch_bounds__(bitsliced::kShots)
     exact_small(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                 int32_t* __restrict__ out_c, int32_t* __restrict__ out_p) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
+  const bitsliced::Entry<bitsliced::kGroups>* rows = bitsliced::small_front_end<IB>(
+      x, B, P, b0, tb.lists, bitsliced::dynamic_entries<bitsliced::kGroups>());
+  const int tid = threadIdx.x;
+  const long long b = b0 + tid;
   if (b >= B) return;
-  Row<W> row;
-  row.load(x + b * P, P, tb.W);
   Zw acc{{0, 0, 0, 0}, 0};
   for (int g = 0; g < tb.G; ++g) {
     Zw v[1];
-    const PopcountParities<Row<W>> par{tb, row, g};
+    const bitsliced::ShotRows par(rows, tb.lists, g, tid);
     product<1>(tb, g, par, v);
     add_exact(acc, v[0]);
   }
@@ -683,7 +697,7 @@ cudaError_t launch_exact_wide(const uint8_t* x, long long B, int P, const Tables
                               int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
   const dim3 grid((unsigned)((B + bitsliced::kShots - 1) / bitsliced::kShots),
                   (unsigned)((tb.G + tile - 1) / tile));
-  const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
+  const size_t bytes = bitsliced::shared_bytes<bitsliced::kGroups>(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
   const cudaError_t err = allow_shared(exact_wide<IB>, bytes);
   if (err != cudaSuccess) return err;
   exact_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out_c, out_p);
@@ -695,7 +709,7 @@ cudaError_t launch_approx_wide_as(const uint8_t* x, long long B, int P, const Ta
                                   float* out, cudaStream_t stream) {
   const dim3 grid((unsigned)((B + bitsliced::kShots - 1) / bitsliced::kShots),
                   (unsigned)((tb.G + tile - 1) / tile));
-  const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
+  const size_t bytes = bitsliced::shared_bytes<bitsliced::kGroups>(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
   const cudaError_t err = allow_shared(approx_wide<M, IB>, bytes);
   if (err != cudaSuccess) return err;
   approx_wide<M, IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out);
@@ -709,25 +723,32 @@ cudaError_t launch_approx_wide(const uint8_t* x, long long B, int P, const Table
                                         : launch_approx_wide_as<M, 2>(x, B, P, tb, tile, out, stream);
 }
 
-// W in 1..4: rows in registers; W = 0: rows of tb.W words in shared memory,
-// fewer shots a block where a row is long, down to one warp.
+template <int IB>
+cudaError_t launch_exact_small(const uint8_t* x, long long B, int P, const Tables& tb,
+                               int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
+  const size_t bytes = bitsliced::small_shared_bytes(P, tb.G, tb.T1, tb.T2, tb.T3, tb.T4);
+  const cudaError_t err = allow_shared(exact_small<IB>, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
+  exact_small<IB><<<(unsigned)blocks, bitsliced::kShots, bytes, stream>>>(x, B, P, tb, out_c, out_p);
+  return cudaSuccess;
+}
+
+// K7b. W in 1..4: rows in registers; W = 0: rows of tb.W words in shared
+// memory, fewer shots a block where a row is long, down to one warp.
 template <int W>
-cudaError_t launch_small(const uint8_t* x, long long B, int P, const Tables& tb, int32_t* out_c,
-                         int32_t* out_p, float* out_f, cudaStream_t stream) {
+cudaError_t launch_approx_small(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
+                                cudaStream_t stream) {
   int threads = kSmallThreads;
   size_t bytes = 0;
   if (W == 0) {
     while (threads > 32 && sizeof(uint32_t) * threads * tb.W > (size_t)kDefaultSharedBytes) threads /= 2;
     bytes = sizeof(uint32_t) * threads * tb.W;
-    const cudaError_t err =
-        out_f ? allow_shared(approx_small<W>, bytes) : allow_shared(exact_small<W>, bytes);
+    const cudaError_t err = allow_shared(approx_small<W>, bytes);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  if (out_f)
-    approx_small<W><<<blocks, threads, bytes, stream>>>(x, B, P, tb, out_f);
-  else
-    exact_small<W><<<blocks, threads, bytes, stream>>>(x, B, P, tb, out_c, out_p);
+  approx_small<W><<<blocks, threads, bytes, stream>>>(x, B, P, tb, out);
   return cudaSuccess;
 }
 
@@ -736,14 +757,14 @@ bool valid_shape(long long B, int G, int W, int wide, int tile) {
   return !wide || (tile >= 32 && tile <= kMaxTile && (tile & (tile - 1)) == 0);
 }
 
-cudaError_t launch_small_by_words(const uint8_t* x, long long B, int P, const Tables& tb,
-                                  int32_t* out_c, int32_t* out_p, float* out_f, cudaStream_t stream) {
+cudaError_t launch_approx_small_by_words(const uint8_t* x, long long B, int P, const Tables& tb,
+                                         float* out, cudaStream_t stream) {
   switch (tb.W) {
-    case 1: return launch_small<1>(x, B, P, tb, out_c, out_p, out_f, stream);
-    case 2: return launch_small<2>(x, B, P, tb, out_c, out_p, out_f, stream);
-    case 3: return launch_small<3>(x, B, P, tb, out_c, out_p, out_f, stream);
-    case 4: return launch_small<4>(x, B, P, tb, out_c, out_p, out_f, stream);
-    default: return launch_small<0>(x, B, P, tb, out_c, out_p, out_f, stream);
+    case 1: return launch_approx_small<1>(x, B, P, tb, out, stream);
+    case 2: return launch_approx_small<2>(x, B, P, tb, out, stream);
+    case 3: return launch_approx_small<3>(x, B, P, tb, out, stream);
+    case 4: return launch_approx_small<4>(x, B, P, tb, out, stream);
+    default: return launch_approx_small<0>(x, B, P, tb, out, stream);
   }
 }
 
@@ -765,10 +786,12 @@ extern "C" int tsim_exact_eval(const void* x, long long B, int P, const void* fl
   int32_t* oc = static_cast<int32_t*>(out_c);
   int32_t* op = static_cast<int32_t*>(out_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool one = bitsliced::index_bytes(P) == 1;
   if (wide)
-    return finish(bitsliced::index_bytes(P) == 1 ? launch_exact_wide<1>(xp, B, P, tb, tile, oc, op, s)
-                                                 : launch_exact_wide<2>(xp, B, P, tb, tile, oc, op, s));
-  return finish(launch_small_by_words(xp, B, P, tb, oc, op, nullptr, s));
+    return finish(one ? launch_exact_wide<1>(xp, B, P, tb, tile, oc, op, s)
+                      : launch_exact_wide<2>(xp, B, P, tb, tile, oc, op, s));
+  return finish(one ? launch_exact_small<1>(xp, B, P, tb, oc, op, s)
+                    : launch_exact_small<2>(xp, B, P, tb, oc, op, s));
 }
 
 // Approximate finisher (K6 wide, K7b small) of a rung whose buffer holds the
@@ -784,7 +807,7 @@ extern "C" int tsim_approx_eval(const void* x, long long B, int P, const void* f
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) return finish(launch_approx_wide<bitsliced::kAllStages>(xp, B, P, tb, tile, of, s));
-  return finish(launch_small_by_words(xp, B, P, tb, nullptr, nullptr, of, s));
+  return finish(launch_approx_small_by_words(xp, B, P, tb, of, s));
 }
 
 // K6 with the stages of variant `variant` (0 empty: the prefactor and the

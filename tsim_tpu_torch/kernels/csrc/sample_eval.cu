@@ -10,12 +10,14 @@
 // On the TPU every parity is a bf16 matrix-unit dot of the shot's 0/1
 // parameters against a term's parameter mask. No parity matrix is formed
 // here. The configurations differ in how they form a parity:
-//   "wide" (K1, K8): bit-sliced over the 128 shots of a block (bitsliced.cuh):
+//   "wide" (K1, K8): bit-sliced over the shots of a block (bitsliced.cuh):
 //   the block's rows become bit planes in shared memory and a graph's thread
 //   XORs the planes of each mask's set parameters, walking a host-built
-//   stream of their indices; any number of parameters;
+//   stream of their indices; any number of parameters; 128 shots a block, or
+//   32 for launches of few rows (see below);
 //   "small" (K2): bit-sliced as well, with the same planes and lists, but a
-//   thread a mask: below 24 graphs a thread a graph would leave most of the
+//   thread a mask (bitsliced.cuh::small_front_end, shared with the small
+//   exact kernel): below 24 graphs a thread a graph would leave most of the
 //   block idle; any number of parameters;
 //   "per_term_wide" / "per_term_small" (K3a / K3b): the same popcount with
 //   the packed words staged in shared memory and read in a loop over all W
@@ -27,19 +29,36 @@
 // other, so whatever belongs to the graph (its table entries) is the same for
 // the 32 lanes of a warp, which L1 broadcasts, and no sum over graphs crosses
 // lanes. The small configurations give each thread one shot and all graphs,
-// in the same order, so they agree bit for bit. The wide ones give each thread one shot of every 32-shot group of the block
-// and each warp a share of the graphs (warp w the graphs w, w + warps, ... of
-// every chunk of blockDim graphs); the warps' sums are added in order through
-// shared memory, and no sum is carried across blocks. "wide" and
-// "per_term_wide" share that order, so they agree bit for bit. The ragged
-// edge of the batch is masked in all of them.
+// in the same order, so they agree bit for bit. The wide ones give each
+// thread one shot of every 32-shot group of the block and each warp a share
+// of the graphs (warp w the graphs w, w + warps, ... of every chunk of
+// blockDim graphs); the warps' sums are added in order through shared
+// memory, and no sum is carried across blocks. "wide" and "per_term_wide"
+// share that order, so they agree bit for bit. The ragged edge of the batch
+// is masked in all of them.
 //
 // "wide" runs in two stages per chunk of blockDim graphs. In the integer
-// stage a thread is a graph: it forms every parity of the graph for all 128
-// shots at once, keeps the half-pi total and the pi-product sign bit-sliced,
-// and leaves the result in its column of shared memory. In the per-shot
-// stage the block turns round as described above, and a thread reads bit
-// `lane` of the columns' words.
+// stage a thread is a graph: it forms every parity of the graph for all the
+// block's shots at once, keeps the half-pi total and the pi-product sign
+// bit-sliced, and leaves the result in its column of shared memory. In the
+// per-shot stage the block turns round as described above, and a thread
+// reads bit `lane` of the columns' words.
+//
+// "wide" has two instances, NG = 4 and NG = 1 groups of 32 shots a block.
+// With 128 shots a block, a launch of fewer than about 16,000 rows leaves
+// most of the card's 132 SMs without a block, and each thread carries four shots
+// through every graph of its warp in turn (K4's probe, 128 rows, is one
+// block). The 32-shot instance gives such a launch four times the blocks, a
+// quarter of the per-shot work each, at the price of walking the lists once
+// per 32 shots instead of once per 128; kernels/sample_eval.py chooses it by
+// row count. Such a launch is latency-bound in the integer stage (one thread
+// walks a graph's lists, with too few warps on the SM to hide the loads), so
+// the 32-shot block also takes up to kWideSmallThreads threads and walks that
+// many graphs' lists at once, where the 128-shot block walks 128 after 128;
+// only the first four warps work in the per-shot stage. A shot's graphs are
+// added in the same order in both (a thread holds shot 32 k + lane of its
+// block, warp w the graphs w, w + warps, ... of each span of 128), so the two
+// are equal bit for bit.
 //
 // What bounds "wide" on an H100: instruction throughput in the per-shot stage. The
 // stage ablation (dev/torch_kernel_ablate.py, 2^20 rows, 2-check
@@ -67,12 +86,18 @@
 // word that is added to the real part, so the compiler cannot drop them.
 //
 // Registers (nvcc 12.8, -O3, sm_90a): "wide" 126 with four blocks an SM asked
-// for, no spill; the build keeps the compiler's report beside the library
-// (kernels/build.py).
+// for, its 32-shot instance 63, "small" 40, no spill; the build keeps the
+// compiler's report beside the library (kernels/build.py).
 //
 // Build with -O3 and without --use_fast_math or -ftz, so that denormals
 // survive (the host still folds the common power of two out of the
-// prefactor, see compile/sample_tables.py).
+// prefactor, see compile/sample_tables.py). Every complex product whose
+// rounding matters is written with explicit intrinsics (cmul and the graph
+// sum in accumulate_graph: one __fmul_rn and one __fmaf_rn a component):
+// nvcc contracts a * b + c * d into a fused multiply-add in whichever way it
+// likes, and did so differently in the one-shot and the four-shot instances
+// of "wide", which then differed in the last bit. With the products pinned
+// every configuration and instance rounds the same way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,10 +117,17 @@ using bitsliced::kT3;
 using bitsliced::kT4;
 
 constexpr float kSqrtHalf = 0.70710678118654752f;
-constexpr int kWideThreads = 128;  // upper bound of the wide block
+constexpr int kWideThreads = 128;  // upper bound of the wide block, and of its per-shot stage
+constexpr int kWideSmallThreads = 512;  // upper bound of the 32-shot wide block
 constexpr int kPerTermGroups = 8;  // 32-shot groups per per-term wide block
 constexpr int kSmallThreads = 128;  // upper bound of the per-term small block
 constexpr int kDefaultSharedBytes = 48 * 1024;
+
+// Threads of a wide block: one a graph up to `most`, a whole number of warps.
+__host__ __device__ inline int wide_threads(int G, int most = kWideThreads) {
+  const int lanes = 32 * ((G + 31) / 32);
+  return lanes < most ? lanes : most;
+}
 
 // Configuration codes of tsim_sample_eval (kernels/sample_eval.py::CONFIGURATIONS).
 enum Config { kSmall = 0, kWide = 1, kPerTermSmall = 2, kPerTermWide = 3 };
@@ -197,8 +229,8 @@ struct SharedRows {
 };
 
 __device__ __forceinline__ void cmul(float& re, float& im, float fr, float fi) {
-  const float nre = re * fr - im * fi;
-  const float nim = re * fi + im * fr;
+  const float nre = __fmaf_rn(re, fr, -__fmul_rn(im, fi));
+  const float nim = __fmaf_rn(re, fi, __fmul_rn(im, fr));
   re = nre;
   im = nim;
 }
@@ -347,23 +379,27 @@ __device__ __forceinline__ void accumulate_graph(const Tables& tb, int g, const 
   const float pr = __ldg(tb.pre_re + g), pi = __ldg(tb.pre_im + g);
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
-    acc_re[k] += re[k] * pr - im[k] * pi;
-    acc_im[k] += re[k] * pi + im[k] * pr;
+    acc_re[k] += __fmaf_rn(re[k], pr, -__fmul_rn(im[k], pi));
+    acc_im[k] += __fmaf_rn(re[k], pi, __fmul_rn(im[k], pr));
   }
 }
 
-// The end of the wide configurations: every thread holds the sums of its NG
-// shots (shot 32 k + lane of the block) over its warp's graphs; adds the
-// warps' sums in order and writes the shots that lie inside the batch.
+// The end of the wide configurations: every thread of the first `warps`
+// warps holds the sums of its NG shots (shot 32 k + lane of the block) over
+// its warp's graphs; adds the warps' sums in order and writes the shots that
+// lie inside the batch.
 template <int NG>
 __device__ __forceinline__ void warps_sum_store(const float (&acc_re)[NG], const float (&acc_im)[NG],
-                                                long long b0, long long B, float* __restrict__ out) {
+                                                int warps, long long b0, long long B,
+                                                float* __restrict__ out) {
   __shared__ float red[kWideThreads / 32][32 * NG][2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp < warps) {
 #pragma unroll
-  for (int k = 0; k < NG; ++k) {
-    red[warp][32 * k + lane][0] = acc_re[k];
-    red[warp][32 * k + lane][1] = acc_im[k];
+    for (int k = 0; k < NG; ++k) {
+      red[warp][32 * k + lane][0] = acc_re[k];
+      red[warp][32 * k + lane][1] = acc_im[k];
+    }
   }
   __syncthreads();
   for (int j = tid; j < 64 * NG; j += blockDim.x) {
@@ -374,26 +410,29 @@ __device__ __forceinline__ void warps_sum_store(const float (&acc_re)[NG], const
   }
 }
 
-// Wide configuration (K1; K8 with M below kAllStages): block = 128 shots
-// (four groups of 32) x up to kWideThreads threads, IB bytes an index of the
-// lists. Dynamic shared memory (bitsliced.cuh): the bit planes, the lists' row
-// table, then one column per thread. The block takes the graphs in chunks of
-// blockDim. In the integer stage a thread is a graph and fills its column for
-// all 128 shots. In the per-shot stage a lane is one shot of each group and
-// warp w takes the chunk's graphs w, w + warps, ...: each thread adds its four
-// shots' products of one graph after the other. At the end the warps' sums
-// are added in order.
-template <unsigned M, int IB>
-__global__ void __launch_bounds__(kWideThreads, 4)
+// Wide configuration (K1; K8 with M below kAllStages): block = 32 NG shots
+// (NG groups of 32) x wide_threads(G) threads (NG = 4) or up to
+// kWideSmallThreads (NG = 1), IB bytes an index of the lists. Dynamic shared
+// memory (bitsliced.cuh): the bit planes, the lists' row table, then one
+// column per thread. The block takes the graphs in chunks of blockDim. In the
+// integer stage a thread is a graph and fills its column for all the block's
+// shots. The per-shot stage takes each chunk in spans of wide_threads(G)
+// graphs, in order, and only the first wide_threads(G) / 32 warps work in it:
+// a lane is one shot of each group and warp w takes the span's graphs w,
+// w + warps, ...: each thread adds its NG shots' products of one graph after
+// the other. At the end the warps' sums are added in order. With NG = 4 a
+// chunk is one span; with NG = 1 a chunk may hold several (see the top of the
+// file), and the spans, so the order of every sum, are those of NG = 4.
+template <unsigned M, int IB, int NG>
+__global__ void __launch_bounds__(NG == 1 ? kWideSmallThreads : kWideThreads, NG == 1 ? 1 : 4)
     sample_eval_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                      float* __restrict__ out) {
-  constexpr int NG = bitsliced::kGroups;
-  extern __shared__ bitsliced::Entry bs_dyn[];
-  const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
-  const int tid = threadIdx.x, stride = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
+  bitsliced::Entry<NG>* bs_dyn = bitsliced::dynamic_entries<NG>();
+  const long long b0 = (long long)blockIdx.x * 32 * NG;
+  const int tid = threadIdx.x, stride = blockDim.x, span = wide_threads(tb.G);
+  const int lane = tid & 31, warp = tid >> 5, warps = span >> 5;
   const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
-  bitsliced::Entry* columns = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
+  bitsliced::Entry<NG>* columns = bs_dyn + bitsliced::column_offset<NG>(P, tb.T1, tb.T2, tb.T3, tb.T4);
   bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
   __syncthreads();
 
@@ -403,18 +442,22 @@ __global__ void __launch_bounds__(kWideThreads, 4)
     acc_re[k] = 0.0f;
     acc_im[k] = 0.0f;
   }
-  for (int g0 = 0; g0 < tb.G; g0 += stride) {
-    if (g0 + tid < tb.G)
-      bitsliced::integer_stage<M, IB>(tb.lists, g0 + tid, bs_dyn, base, columns + tid, stride);
+  for (int c0 = 0; c0 < tb.G; c0 += stride) {
+    if (c0 + tid < tb.G)
+      bitsliced::integer_stage<M, IB>(tb.lists, c0 + tid, bs_dyn, base, columns + tid, stride);
     __syncthreads();
-    const int n = min(stride, tb.G - g0);
-    for (int j = warp; j < n; j += warps) {
-      const bitsliced::Column par{columns + j, stride, tb.T1, tb.T4, lane};
-      accumulate_graph<M, NG>(tb, g0 + j, par, acc_re, acc_im);
+    if (warp < warps) {
+      for (int g0 = c0; g0 < min(c0 + stride, tb.G); g0 += span) {
+        const int n = min(span, tb.G - g0);
+        for (int j = warp; j < n; j += warps) {
+          const bitsliced::Column<NG> par{columns + (g0 - c0) + j, stride, tb.T1, tb.T4, lane};
+          accumulate_graph<M, NG>(tb, g0 + j, par, acc_re, acc_im);
+        }
+      }
     }
     __syncthreads();  // the columns are filled again by the next chunk
   }
-  warps_sum_store(acc_re, acc_im, b0, B, out);
+  warps_sum_store(acc_re, acc_im, warps, b0, B, out);
 }
 
 // Per-term wide configuration (K3a): the wide configuration's per-shot stage
@@ -451,91 +494,29 @@ __global__ void __launch_bounds__(kWideThreads)
       accumulate_graph<kAllStages, NG>(tb, g0 + j, par, acc_re, acc_im);
     }
   }
-  warps_sum_store(acc_re, acc_im, b0, B, out);
+  warps_sum_store(acc_re, acc_im, warps, b0, B, out);
 }
 
-// One shot's parities of graph g, read from the rows that the small
-// configuration's integer stage left in shared memory: bit `lane` of word
-// `group` of the entry of list row r at rows[r * G + g]; the graph's half-pi
-// total (three bit planes) and pi-product sign follow the R list rows.
-struct ShotRows {
-  const bitsliced::Entry* rows;
-  int G, g, T1, R, pairs, group, lane;  // pairs: the first phase-pair row
-
-  __device__ __forceinline__ int bit(int row) const {
-    return (int)((rows[row * G + g].w[group] >> lane) & 1u);
-  }
-  __device__ __forceinline__ void node(int t, int (&p)[1]) const { p[0] = bit(t); }
-  __device__ __forceinline__ void halfpi(int (&tot)[1]) const {
-    tot[0] = bit(R) | bit(R + 1) << 1 | bit(R + 2) << 2;
-  }
-  __device__ __forceinline__ void sign(int (&sgn)[1]) const { sgn[0] = bit(R + 3); }
-  __device__ __forceinline__ void pair(int t, int (&p)[1], int (&q)[1]) const {
-    p[0] = bit(pairs + 2 * t);
-    q[0] = bit(pairs + 2 * t + 1);
-  }
-  __device__ __forceinline__ int bare(int) const { return 0; }
-};
-
 // Small configuration (K2): block = 128 shots = 128 threads, IB bytes an index
-// of the lists. With fewer than 24 graphs a thread a graph would leave most
-// of the block idle in the integer stage, so there a thread is a mask: the
-// R * G list rows of the rung are dealt out over the block, each thread XORs
-// the planes its row lists for all 128 shots and leaves the parity entry in
-// shared memory. Then a thread is one word of one graph and folds the
-// graph's half-pi rows into the total's three bit planes and its pi-product
-// rows into the sign. In the per-shot stage a thread is a shot and walks all
+// of the lists. The small front end (bitsliced.cuh::small_front_end, shared
+// with exact_eval.cu `exact_small`) forms every parity of the block's 128
+// shots, a thread a mask, then the half-pi totals and pi-product signs, a
+// thread a word. In the per-shot stage a thread is a shot and walks all
 // graphs in order through accumulate_graph, as the per-term small
 // configuration does with its popcount parities, so the two agree bit for bit.
-// Dynamic shared memory: the planes and the lists' row table (bitsliced.cuh),
-// then R + 4 entries a graph. A rung without terms (R = 0) builds no planes.
 template <int IB>
 __global__ void __launch_bounds__(bitsliced::kShots)
     sample_eval_small(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                       float* __restrict__ out) {
-  using bitsliced::Entry;
-  constexpr int NG = bitsliced::kGroups;
-  extern __shared__ Entry bs_dyn[];
   const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
-  const int tid = threadIdx.x, G = tb.G;
-  const int R = tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4;
-  const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
-  Entry* rows = bs_dyn + bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4);
-  if (R > 0) {
-    bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
-    __syncthreads();
-    for (int i = tid; i < R * G; i += blockDim.x) {
-      const int r = i / G, g = i - r * G;
-      const int lo = base[r], hi = base[r + 1];
-      const uint32_t* word = tb.lists.words + (long long)lo * G + g;
-      Entry acc{};
-      for (int j = lo; j < hi; ++j, word += G) bitsliced::xor_listed<IB>(acc, bs_dyn, __ldg(word));
-      rows[i] = acc;
-    }
-    __syncthreads();
-    const int live2 = base[R + 1], live3 = base[R + 2];
-    for (int i = tid; i < G * NG; i += blockDim.x) {
-      const int g = i / NG, k = i - g * NG;
-      uint32_t t0 = 0u, t1 = 0u, t2 = 0u, sgn = 0u;
-      for (int r = tb.T1; r < tb.T1 + live2; ++r)
-        bitsliced::ripple_add_word(t0, t1, t2, rows[r * G + g].w[k], __ldg(tb.lists.meta + r * G + g) >> 16);
-      for (int r = tb.T1 + tb.T2; r < tb.T1 + tb.T2 + 2 * live3; r += 2) {
-        const uint32_t pc = 0u - (uint32_t)((__ldg(tb.lists.meta + r * G + g) >> 16) & 1);
-        const uint32_t qc = 0u - (uint32_t)((__ldg(tb.lists.meta + (r + 1) * G + g) >> 16) & 1);
-        sgn ^= (rows[r * G + g].w[k] ^ pc) & (rows[(r + 1) * G + g].w[k] ^ qc);
-      }
-      rows[R * G + g].w[k] = t0;
-      rows[(R + 1) * G + g].w[k] = t1;
-      rows[(R + 2) * G + g].w[k] = t2;
-      rows[(R + 3) * G + g].w[k] = sgn;
-    }
-    __syncthreads();
-  }
+  const bitsliced::Entry<bitsliced::kGroups>* rows = bitsliced::small_front_end<IB>(
+      x, B, P, b0, tb.lists, bitsliced::dynamic_entries<bitsliced::kGroups>());
+  const int tid = threadIdx.x;
   const long long b = b0 + tid;
   if (b >= B) return;
   float acc_re[1] = {0.0f}, acc_im[1] = {0.0f};
-  for (int g = 0; g < G; ++g) {
-    const ShotRows par{rows, G, g, tb.T1, R, tb.T1 + tb.T2 + 2 * tb.T3, tid >> 5, tid & 31};
+  for (int g = 0; g < tb.G; ++g) {
+    const bitsliced::ShotRows par(rows, tb.lists, g, tid);
     accumulate_graph<kAllStages, 1>(tb, g, par, acc_re, acc_im);
   }
   out[b * 2] = acc_re[0];
@@ -563,11 +544,6 @@ __global__ void __launch_bounds__(kSmallThreads)
   out[b * 2 + 1] = acc_im[0];
 }
 
-int wide_threads(int G) {
-  const int lanes = 32 * ((G + 31) / 32);
-  return lanes < kWideThreads ? lanes : kWideThreads;
-}
-
 // A block's static and dynamic shared memory together may exceed the
 // default 48 KB only with the kernel's consent; beyond what the card has,
 // the attribute is refused and the launch is not made.
@@ -580,31 +556,37 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <unsigned M, int IB>
+template <unsigned M, int IB, int NG>
 cudaError_t launch_wide_as(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
                            cudaStream_t stream) {
-  const int threads = wide_threads(tb.G);
-  const size_t bytes = bitsliced::shared_bytes(P, tb.T1, tb.T2, tb.T3, tb.T4, threads);
-  const cudaError_t err = allow_shared(sample_eval_wide<M, IB>, bytes);
+  const int threads = wide_threads(tb.G, NG == 1 ? kWideSmallThreads : kWideThreads);
+  const size_t bytes = bitsliced::shared_bytes<NG>(P, tb.T1, tb.T2, tb.T3, tb.T4, threads);
+  const cudaError_t err = allow_shared(sample_eval_wide<M, IB, NG>, bytes);
   if (err != cudaSuccess) return err;
-  const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
-  sample_eval_wide<M, IB><<<(unsigned)blocks, threads, bytes, stream>>>(x, B, P, tb, out);
+  const long long blocks = (B + 32 * NG - 1) / (32 * NG);
+  sample_eval_wide<M, IB, NG><<<(unsigned)blocks, threads, bytes, stream>>>(x, B, P, tb, out);
   return cudaSuccess;
 }
 
+// The wide kernel with stage mask M and NG groups of 32 shots a block (1 or
+// 4; anything else is refused).
 template <unsigned M>
-cudaError_t launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
-                        cudaStream_t stream) {
-  return bitsliced::index_bytes(P) == 1 ? launch_wide_as<M, 1>(x, B, P, tb, out, stream)
-                                        : launch_wide_as<M, 2>(x, B, P, tb, out, stream);
+cudaError_t launch_wide(const uint8_t* x, long long B, int P, const Tables& tb, int groups,
+                        float* out, cudaStream_t stream) {
+  const bool one = bitsliced::index_bytes(P) == 1;
+  switch (groups) {
+    case 1: return one ? launch_wide_as<M, 1, 1>(x, B, P, tb, out, stream)
+                       : launch_wide_as<M, 2, 1>(x, B, P, tb, out, stream);
+    case 4: return one ? launch_wide_as<M, 1, 4>(x, B, P, tb, out, stream)
+                       : launch_wide_as<M, 2, 4>(x, B, P, tb, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int IB>
 cudaError_t launch_small_as(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
                             cudaStream_t stream) {
-  const int R = tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4;
-  const size_t entries = bitsliced::column_offset(P, tb.T1, tb.T2, tb.T3, tb.T4) + (size_t)(R + 4) * tb.G;
-  const size_t bytes = R > 0 ? sizeof(bitsliced::Entry) * entries : 0;
+  const size_t bytes = bitsliced::small_shared_bytes(P, tb.G, tb.T1, tb.T2, tb.T3, tb.T4);
   const cudaError_t err = allow_shared(sample_eval_small<IB>, bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
@@ -635,16 +617,18 @@ cudaError_t launch_per_term(const uint8_t* x, long long B, int P, const Tables& 
 }
 
 // Stage masks of the ablation variants, in the order of
-// kernels/sample_eval.py::ABLATION_VARIANTS (names of dev/kernel_ablate.py).
+// kernels/sample_eval.py::ABLATION_VARIANTS (names of dev/kernel_ablate.py),
+// on the 128-shot block of K1 at the sizes the ablation times.
 cudaError_t launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb, int variant,
                           float* out, cudaStream_t stream) {
+  constexpr int NG = bitsliced::kGroups;
   switch (variant) {
-    case 0: return launch_wide<0>(x, B, P, tb, out, stream);                            // empty
-    case 1: return launch_wide<kP1>(x, B, P, tb, out, stream);                          // par1
-    case 2: return launch_wide<kP1 | kP2 | kP3 | kP4>(x, B, P, tb, out, stream);        // par-all
-    case 3: return launch_wide<kP1 | kT1>(x, B, P, tb, out, stream);                    // par1+T1
-    case 4: return launch_wide<kP1 | kT1 | kP2 | kT2 | kP3 | kT3>(x, B, P, tb, out, stream);  // par+T1..T3
-    case 5: return launch_wide<kAllStages>(x, B, P, tb, out, stream);                   // full
+    case 0: return launch_wide<0>(x, B, P, tb, NG, out, stream);                          // empty
+    case 1: return launch_wide<kP1>(x, B, P, tb, NG, out, stream);                        // par1
+    case 2: return launch_wide<kP1 | kP2 | kP3 | kP4>(x, B, P, tb, NG, out, stream);      // par-all
+    case 3: return launch_wide<kP1 | kT1>(x, B, P, tb, NG, out, stream);                  // par1+T1
+    case 4: return launch_wide<kP1 | kT1 | kP2 | kT2 | kP3 | kT3>(x, B, P, tb, NG, out, stream);  // par+T1..T3
+    case 5: return launch_wide<kAllStages>(x, B, P, tb, NG, out, stream);                 // full
     default: return cudaErrorInvalidValue;
   }
 }
@@ -653,19 +637,20 @@ cudaError_t launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb
 
 // x: (B, P) uint8 rows; flat: the rung's table buffer; out: (B, 2) float32.
 // config: 0 small, 1 wide, 2 per-term small, 3 per-term wide, each for any
-// number W of packed words a row. Returns the first CUDA error of the launch (0 on success); the
-// caller raises on anything else.
+// number W of packed words a row; groups: 32-shot groups a block of "wide",
+// 1 or 4 (the others take 1). Returns the first CUDA error of the launch (0
+// on success); the caller raises on anything else.
 extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* flat, int G,
-                                int T1, int T2, int T3, int T4, int W, int config, void* out,
-                                void* stream) {
-  if (B <= 0 || G <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+                                int T1, int T2, int T3, int T4, int W, int config, int groups,
+                                void* out, void* stream) {
+  if (B <= 0 || G <= 0 || W <= 0 || (config != kWide && groups != 1)) return (int)cudaErrorInvalidValue;
   const Tables tb = make_tables(static_cast<const int32_t*>(flat), G, T1, T2, T3, T4, W);
   const uint8_t* xp = static_cast<const uint8_t*>(x);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   switch (config) {
-    case kWide: err = launch_wide<kAllStages>(xp, B, P, tb, op, s); break;
+    case kWide: err = launch_wide<kAllStages>(xp, B, P, tb, groups, op, s); break;
     case kPerTermSmall:
     case kPerTermWide: err = launch_per_term(xp, B, P, tb, config, op, s); break;
     case kSmall:
@@ -678,8 +663,8 @@ extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* f
   return (int)cudaGetLastError();
 }
 
-// The wide kernel with the stages of ablation variant `variant` (0 empty,
-// 1 par1, 2 par-all, 3 par1+T1, 4 par+T1..T3, 5 full).
+// The wide kernel (128 shots a block) with the stages of ablation variant
+// `variant` (0 empty, 1 par1, 2 par-all, 3 par1+T1, 4 par+T1..T3, 5 full).
 extern "C" int tsim_sample_eval_ablate(const void* x, long long B, int P, const void* flat, int G,
                                        int T1, int T2, int T3, int T4, int W, int variant,
                                        void* out, void* stream) {

@@ -9,9 +9,12 @@ tensors, chosen by the caller, which also runs the start-up self-test
 
 Configurations by name (and the TPU kernel each replaces): ``wide`` (K1) and
 ``small`` (K2), both with bit-sliced parities and any number of parameters,
-``per_term_wide`` (K3a), ``per_term_small`` (K3b);
-``self_test`` counts the launches of the start-up self-test (K4) and
-``ablate`` those of the stage ablation (K8, ``dev/torch_kernel_ablate.py``).
+``per_term_wide`` (K3a), ``per_term_small`` (K3b). ``wide`` has two
+instances, 128 and 32 shots a block, chosen by row count
+(:func:`wide_block_shots`) and equal bit for bit; launches of the 32-shot
+one count as ``wide_32``. ``self_test`` counts the launches of the start-up
+self-test (K4) and ``ablate`` those of the stage ablation (K8,
+``dev/torch_kernel_ablate.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ SMALL_G_CUTOFF = 24  # graphs; fewer take the one-thread-per-shot configurations
 # Codes of tsim_sample_eval's ``config`` argument, by position.
 CONFIGURATIONS = ("small", "wide", "per_term_small", "per_term_wide")
 
+# Shots a block of the two instances of "wide", and the row count from which
+# a launch takes the 128-shot one. Below it the 32-shot instance gives the
+# card four times the blocks; from it on the 128-shot one walks the lists
+# once per 128 shots instead of once per 32. Measured on an H100 (PERF.md
+# section 6, PR 6: chip_smoke.py phase 8 times both at 128 to 65,536 rows).
+WIDE_BLOCK_SHOTS = (32, 128)
+WIDE_SMALL_ROWS = 16384
+
 # Variants of tsim_sample_eval_ablate, by position, named as in
 # dev/kernel_ablate.py: (name, families whose parities are formed, families
 # whose factors are applied).
@@ -41,7 +52,7 @@ ABLATION_VARIANTS = (
 )
 
 # Launches per kernel, counted where each launch succeeds.
-launch_counts = {name: 0 for name in (*CONFIGURATIONS, "self_test", "ablate")}
+launch_counts = {name: 0 for name in (*CONFIGURATIONS, "wide_32", "self_test", "ablate")}
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +87,14 @@ def configuration(num_graphs: int, per_term: bool | None = None) -> str:
     return f"per_term_{base}" if per_term else base
 
 
+def wide_block_shots(rows: int) -> int:
+    """Shots a block of "wide" for a launch of ``rows`` rows: 32 below
+    WIDE_SMALL_ROWS, else 128. A launch takes at least one row."""
+    if rows <= 0:
+        raise ValueError(f"a launch takes at least one row, got {rows}")
+    return 32 if rows < WIDE_SMALL_ROWS else 128
+
+
 def _check(tables, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the sampling kernels take CUDA tensors, got {x.device}")
@@ -90,9 +109,10 @@ def _check(tables, x: torch.Tensor) -> None:
         raise ValueError("the sampling kernels need at least one graph")
 
 
-def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str) -> torch.Tensor:
+def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str, *extra: int) -> torch.Tensor:
     """Launch ``entry`` (``tsim_sample_eval`` or ``tsim_sample_eval_ablate``)
-    with its mode ``code``, raise on failure, count under ``count_as``."""
+    with its mode ``code`` and the ``extra`` int arguments that follow it,
+    raise on failure, count under ``count_as``."""
     _check(tables, x)
     B = x.shape[0]
     out = torch.empty((B, 2), dtype=torch.float32, device=x.device)
@@ -105,7 +125,7 @@ def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str) -> torc
         err = getattr(lib, entry)(
             ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
             ctypes.c_void_p(tables.flat.data_ptr()), tables.num_graphs,
-            t1, t2, t3, t4, tables.words, code,
+            t1, t2, t3, t4, tables.words, code, *extra,
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream),
         )
     if err != 0:
@@ -118,12 +138,23 @@ def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str) -> torc
     return out
 
 
-def launch(tables, x: torch.Tensor, config: str, count_as: str | None = None) -> torch.Tensor:
+def launch(
+    tables, x: torch.Tensor, config: str, count_as: str | None = None, *, _block_shots: int | None = None
+) -> torch.Tensor:
     """One launch of configuration ``config`` (one of CONFIGURATIONS) on
-    (B, P) uint8 rows on a CUDA device -> (B, 2) float32 (re, im)."""
+    (B, P) uint8 rows on a CUDA device -> (B, 2) float32 (re, im). "wide"
+    takes the instance :func:`wide_block_shots` chooses for B rows;
+    ``_block_shots`` (32 or 128) forces one, for the tests and the timings
+    that hold the two against each other."""
     if config not in CONFIGURATIONS:
         raise ValueError(f"configuration must be one of {CONFIGURATIONS}, got {config!r}")
-    return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or config)
+    if _block_shots is not None and (config != "wide" or _block_shots not in WIDE_BLOCK_SHOTS):
+        raise ValueError(f"only \"wide\" takes a block of {WIDE_BLOCK_SHOTS} shots, got {config!r}, {_block_shots}")
+    name, groups = config, 1
+    if config == "wide" and x.shape[0] > 0:
+        shots = _block_shots or wide_block_shots(x.shape[0])
+        name, groups = ("wide" if shots == 128 else "wide_32"), shots // 32
+    return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or name, groups)
 
 
 def ablate(tables, x: torch.Tensor, variant: str) -> torch.Tensor:
