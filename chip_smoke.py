@@ -25,9 +25,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    approximate ones agree within rtol 1e-5 of the row's magnitude; each
    kernel and the plain version are timed with CUDA events on one rung (the
    kernels in device time), the small exact kernel (K7a) also at 1024 and
-   16,384 rows and on the state-probability norm rung, and the wide
-   approximate kernel (K6) also on d3's three wide rungs and on 2^20 + 1 rows
-   that the state-probability path draws itself;
+   16,384 rows and on the state-probability norm rung, the small approximate
+   kernel (K7b) on d3's two small rungs (5 and 6 graphs) at 1024, 16,384
+   and 2^20 + 1 rows, and the wide approximate kernel (K6) also on d3's three
+   wide rungs and on 2^20 + 1 rows that the state-probability path draws
+   itself;
 6. state probabilities: ``distillation_d3(p=0.05).compile_state_probs(
    seed=0, device="cuda").probability_of(state, batch_size=2**20)`` for
    the exported states (values finite, in [0, 1]; calls/s and rows/s), and
@@ -89,9 +91,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
 16. small batches: ``distillation_d3(p=0.05).compile_detector_sampler(seed=0,
     device="cuda").sample(16 * 4096, batch_size=4096, append_observables=True)``,
     a notebook's batch, whose wide rungs take K1's 32-shot block: launches,
-    norm deviation, shots/s and z-scores as in phase 4.
+    norm deviation, shots/s and z-scores as in phase 4;
+17. host synchronisations: d3 f32 ``sample()`` of 6 and of 2 batches of
+    2^20 shots after two warm-up calls of 2 batches, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls of
+    each and where each was made, their difference over 4 (the steady
+    state's per batch; counts that differ fail the run) and what is left a
+    call; the batch loop's own wait on an earlier batch's copy event is not
+    one of them;
+18. checkpointing: the d3 sampler saved after one 2^20-shot batch and
+    loaded; the two give bit-identical next 2^16 shots.
 
-Each path of phases 4, 6, 7, 10 to 13 and 16 runs with the launch counts set to
+Phases 4, 7, 10, 12 and 16 sample through the pipelined batch loop
+(``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
+phases 4, 6, 7, 10 to 13 and 16 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
 launched fails the run. The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
@@ -107,6 +120,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -150,7 +164,7 @@ SMALL_BATCH = 4096  # phase 16: a batch whose wide rungs take the 32-shot block 
 SMALL_SHOTS = 16 * SMALL_BATCH
 SWEEP_ROWS = (128, 1024, 4096, 8192, 16384, 32768, 65536)  # phase 8: rows at which K1's two instances are timed
 SWEPT = {("cultivation", 307), ("d3", 103)}  # (program, graphs) of the rungs swept
-SMALL_EXACT_ROWS = (1024, 16384)  # phase 5: K7a also at these rows
+SMALL_EXACT_ROWS = (1024, 16384)  # phase 5: K7a and K7b also at these rows
 WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' four words
 LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
 LONG_ROW_COUNT = (1 << 16) + 1
@@ -415,6 +429,11 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
                 bound = approx_bound(csg, t, KERNEL_ROWS)
                 print(f"time at B={KERNEL_ROWS}, {label} G={t.num_graphs} ({name}): bound {bound[0]:.4f} ms "
                       f"({bound[1]}), kernel {time_ms(lambda: kernel.approx_partials(t, x)):.4f} ms", flush=True)
+            if name == "approx_small":
+                few = {n: device_ms(lambda n=n: kernel.approx_partials(t, x[:n]), reps=20)
+                       for n in (*SMALL_EXACT_ROWS, KERNEL_ROWS)}
+                print(f"approx_small on {label} G={t.num_graphs}: " + ", ".join(
+                    f"{n} rows {ms:.4f} ms" for n, ms in few.items()) + " (device time)", flush=True)
             del t, x
             torch.cuda.empty_cache()
     if set(timing) != set(EXACT_TIMED):
@@ -844,6 +863,74 @@ def small_batch_path(circuit) -> dict:
     return launches
 
 
+def sync_phase(circuit) -> None:
+    """Phase 17: the host synchronisations of d3 f32 ``sample()`` calls of 6
+    and 2 batches, under ``set_sync_debug_mode("warn")``, after two warm-up
+    calls of 2 batches (the self-test's sync falls in those). A sync a batch
+    shows as a difference between the two counts; what is left is made once
+    a call."""
+    import warnings
+
+    sampler = circuit.compile_detector_sampler(seed=1, device=DEVICE)
+    for _ in range(2):
+        sampler.sample(2 * MAIN_BATCH, batch_size=MAIN_BATCH)
+    torch.cuda.synchronize()
+    counts, where = {}, {}
+    for n in (6, 2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sampler.sample(n * MAIN_BATCH, batch_size=MAIN_BATCH)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # torch's own notice that the mode is a prototype is said once a
+        # process and is no sync; its message mentions synchronizing too
+        syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+        counts[n] = len(syncs)
+        where[n] = {}
+        for w in syncs:
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[n][key] = where[n].get(key, 0) + 1
+    print(f"syncs: sample() of 6 batches {counts[6]} (at {where[6] or 'nowhere'}), of 2 batches "
+          f"{counts[2]} (at {where[2] or 'nowhere'}): {(counts[6] - counts[2]) / 4:g} a batch in the "
+          f"steady state, {counts[2] - (counts[6] - counts[2]) / 2:g} a call", flush=True)
+    if counts[6] != counts[2]:
+        fail("syncs: the two calls made different numbers of host synchronisations, "
+             "so the batch loop synchronises with the host per batch")
+    if counts[2] == 0:
+        fail("syncs: the debug mode counted no sync, not even the call's read of the norm "
+             "deviation: the count is at fault")
+
+
+def checkpoint_phase(circuit) -> None:
+    """Phase 18: the d3 sampler saved after one batch and loaded on the card;
+    the next 2^16 shots of both must be equal."""
+    import tempfile
+
+    from tsim_tpu_torch.sampler import CompiledDetectorSampler
+
+    sampler = circuit.compile_detector_sampler(seed=2, device=DEVICE)
+    sampler.sample(MAIN_BATCH, batch_size=MAIN_BATCH)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = Path(tmp) / "d3.ckpt"
+        t0 = time.perf_counter()
+        sampler.save(path)
+        restored = CompiledDetectorSampler.load(path)
+        took = time.perf_counter() - t0
+        size = path.stat().st_size
+    shots = 1 << 16
+    a = sampler.sample(shots, batch_size=shots, append_observables=True)
+    b = restored.sample(shots, batch_size=shots, append_observables=True)
+    same = bool(np.array_equal(a, b))
+    print(f"checkpoint: saved and loaded in {took:.3f} s ({size} bytes, device {restored.device}); "
+          f"next {shots} shots equal: {same}", flush=True)
+    if not same or restored.device.type != "cuda":
+        fail("checkpoint: the restored sampler does not continue the sample stream on the card")
+
+
 def ablation_path(circuit, label: str, dev) -> tuple[dict, tuple, float]:
     """Phase 13: the K8 ablation on the rung ``circuit`` at MAIN_BATCH rows.
     Returns (launches, (full ms, plain ms, bound ms, bound by, rung), max abs err)."""
@@ -1106,6 +1193,12 @@ def main() -> None:
     # ---- phase 16: small batches -----------------------------------------
     f32_paths.append(small_batch_path(circuit))
     f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
+
+    # ---- phase 17: host synchronisations of the batch loop ---------------
+    sync_phase(circuit)
+
+    # ---- phase 18: checkpointing -----------------------------------------
+    checkpoint_phase(circuit)
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

@@ -8,19 +8,22 @@ whose ladder is eight launches of the small f32 kernel and one of the wide).
                                     [--program d3|cultivation|cultivation1] [--evaluation f32|exact]
                                     [--postselected]
 
-1. Stage split of the sampler's own batch step (``_sample_batch``) on the
-   host clock, with ``torch.cuda.synchronize()`` after each stage: noise
-   draw, ladder (evaluations and draws), bitplane pack, device-to-host
-   copy, host unpack into the result array. Medians over the batches.
+1. Stage split of one batch serialised, on the host clock, with
+   ``torch.cuda.synchronize()`` after each stage: noise draw and ladder
+   (the sampler's ``_sample_batch``), the device-to-host copy into pinned
+   memory and the host's move into the result array (``_RowsToHost.push``
+   and ``close``). Medians over the batches. ``sample()`` pipelines these
+   stages across batches; their sum is the time of a batch without that.
 2. The same batches through ``sample()`` without and with
-   ``torch.profiler``: wall time of each, the device's busy share (device
-   time of all kernels over the profiled wall time; one stream, so they
-   do not overlap), and device time by kernel. The Chrome trace and the
-   full table go under ``--out``.
+   ``torch.profiler``: wall time of each, the device's busy share (the union
+   of the kernels' and copies' device intervals over the profiled wall
+   time, beside their plain sum, which counts twice what the copy stream
+   overlaps), and device time by kernel. The Chrome trace and the full table
+   go under ``--out``.
 
 ``--postselected`` profiles postselected 2-check cultivation instead
 (``chip_smoke.py`` phase 10: the mask over all detectors, both reference
-samples): part 2 only, since its batches do not go through
+samples): part 2 only, since its chunks do not go through
 ``_sample_batch``.
 
 Needs a CUDA device and the committed programs.
@@ -48,13 +51,28 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
+def busy_union_us(events) -> float:
+    """Length of the union of the device intervals of ``events`` (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
 def stage_split(sampler, B: int, n: int) -> None:
-    """Part 1: medians over ``n`` batches of each stage of ``_sample_batch``."""
+    """Part 1: medians over ``n`` serialised batches of each stage."""
     import torch
 
-    stages = {k: [] for k in ("noise", "ladder", "pack", "d2h", "unpack")}
+    from tsim_tpu_torch.sampler import _RowsToHost
+
+    stages = {k: [] for k in ("noise", "ladder", "d2h", "host")}
     result = np.empty((B, sampler._program.num_outputs), dtype=np.bool_)
+    to_host = _RowsToHost(result, sampler.device, B)
     for _ in range(n):
+        torch.cuda.synchronize()
         last = [time.perf_counter()]
 
         def stage(name):
@@ -63,7 +81,11 @@ def stage_split(sampler, B: int, n: int) -> None:
             stages[name].append((now - last[0]) * 1e3)
             last[0] = now
 
-        sampler._sample_batch(B, result, stage)
+        out, _ = sampler._sample_batch(B, stage)
+        to_host.push(out, 0)
+        stage("d2h")
+        to_host.close()
+        stage("host")
     total = sum(statistics.median(v) for v in stages.values())
     print(f"stage split, batch {B}, median of {n} (ms):")
     for k, v in stages.items():
@@ -139,11 +161,13 @@ def main() -> None:
         ),
         key=lambda r: -r[1],
     )
-    busy_us = sum(r[1] for r in rows)
+    summed_us = sum(r[1] for r in rows)
+    busy_us = busy_union_us([e for e in prof.events() if e.device_type == cuda])
     print(f"sample({n} x {B}): {plain_wall * 1e3:.1f} ms unprofiled, {prof_wall * 1e3:.1f} ms profiled "
           f"({n * B / plain_wall:.0f} shots/s unprofiled)")
     print(f"device busy {busy_us / 1e3:.1f} ms of {prof_wall * 1e3:.1f} ms profiled wall "
-          f"= {100 * busy_us / 1e6 / prof_wall:.1f}% (idle {100 - 100 * busy_us / 1e6 / prof_wall:.1f}%)")
+          f"= {100 * busy_us / 1e6 / prof_wall:.1f}% (idle {100 - 100 * busy_us / 1e6 / prof_wall:.1f}%); "
+          f"device times summed {summed_us / 1e3:.1f} ms")
     print("device time by op/kernel (self, ms, calls):")
     for key, us, count in rows[:15]:
         if us > 0:

@@ -25,7 +25,8 @@ behind a sleep on the card, so that the host's time stays outside the pairs
   of d3's state probabilities, on seeded rows and on the rows the path itself
   evaluates (f-bits drawn by ``CompiledStateProbs``' noise sampler, the first
   exported state tiled behind them), and on d3's three wide rungs;
-* ``approx_small`` on d3's two small approximate rungs (device time),
+* ``approx_small`` on d3's two small approximate rungs at 2^20 + 1, 1024 and
+  16,384 rows (device time),
   ``exact_wide`` on 2-check cultivation's 307-graph rung, ``exact_small``
   (device time) on its 4-graph rung at 2^20 + 1, 1024 and 16,384 rows and on
   the state-probability norm rung;
@@ -127,7 +128,9 @@ def measure(reps: int) -> dict:
     exact("state probs, path rows", joint_tables, path_rows)
     for i in (1, 2, 3, 4, 5):
         c = rungs["d3"][i]
-        exact(f"d3[{i}]", ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=60 + i))
+        t, x = ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=60 + i)
+        for rows in (ROWS, *SMALL_BATCHES) if i in (1, 2) else (ROWS,):
+            exact(f"d3[{i}]", t, x[:rows])
     for i in (9, 1):
         c = rungs["cultivation"][i]
         t, x = ExactTables(c).to("cuda"), seeded_rows(c.n_params, ROWS, seed=70 + i)

@@ -11,10 +11,14 @@ parities for 32 shots at once from lists of each mask's set parameters
 * the plain numpy front end (bit planes, XOR by the lists, ripple-carry
   half-pi total, pi-product sign) is held against the ``x @ params mod 2``
   route of the plain versions, ragged last groups included, on seeded rungs,
-  on every small rung (which the small f32 kernel K2 reads) and on every
-  exact small rung (which the small exact kernel K7a reads). The CUDA code is
-  written from that function; on the card the kernels are held against the
+  on every small rung (which the small f32 kernel K2 reads), on every exact
+  small rung (which the small exact kernel K7a reads) and on every
+  approximate small rung (K7b). The CUDA code is written from that function; on the card the kernels are held against the
   plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``);
+* K7b's arithmetic: the plain front end's bits, fed to the float32
+  closed-form reader (``compile/closed_form.py``), against the plain
+  approximate evaluator on every approximate small rung and on seeded ones of
+  130, 200 and 300 parameters;
 * the wide f32 kernel's instance (32 or 128 shots a block) follows the row
   count;
 * rungs over 128 parameters, which the exact tables refused before, are held
@@ -37,7 +41,7 @@ import torch
 from tsim_tpu.compile.compile import compile_scalar_graphs
 from tsim_tpu.zx.graph import ZXGraph
 from tests.test_torch_exact_eval import APPROX_RTOL, _check_rung
-from tsim_tpu_torch.compile import bit_lists, evaluate
+from tsim_tpu_torch.compile import bit_lists, closed_form, evaluate
 from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile.sample_eval import PROBE_ROWS, synthetic_rung
@@ -72,6 +76,10 @@ SMALL_RUNGS = (
 # floatfactors of the three programs that evaluate exactly: the small exact
 # kernel (K7a) reads the same front end as K2.
 EXACT_SMALL_RUNGS = [("d3", 0), ("d3_state_probs", 0), ("cultivation", 0), ("cultivation", 1)]
+
+# (program, rung) of every rung under 24 graphs with approximate floatfactors:
+# the small approximate kernel (K7b) reads the same front end.
+APPROX_SMALL_RUNGS = [("d3", 1), ("d3", 2)]
 
 
 @pytest.fixture(scope="module")
@@ -250,6 +258,64 @@ def test_plain_front_end_matches_parity_route_on_exact_small_rungs(programs, pro
     csg = programs[program][rung]
     _check_lists(ExactTables(csg))
     _check_front_end(csg, batch, seed=batch)
+
+
+def test_approximate_small_rungs_are_all_listed(programs):
+    found = [
+        (name, i) for name in ("d3", "d3_state_probs", "cultivation") for i, c in enumerate(programs[name])
+        if exact_kernel.configuration(c.num_graphs) == "small" and ExactTables(c).approximate
+    ]
+    assert found == APPROX_SMALL_RUNGS
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, 129])
+@pytest.mark.parametrize("program,rung", APPROX_SMALL_RUNGS, ids=[f"{p}[{r}]" for p, r in APPROX_SMALL_RUNGS])
+def test_plain_front_end_matches_parity_route_on_approximate_small_rungs(programs, program, rung, batch):
+    """The same on the approximate small rungs, whose tables also hold the
+    closed-form segments before the lists."""
+    csg = programs[program][rung]
+    _check_lists(ExactTables(csg))
+    _check_front_end(csg, batch, seed=batch)
+
+
+def _approximate(rung, seed: int):
+    """``rung`` with seeded approximate floatfactors."""
+    factors = np.random.default_rng(seed).normal(size=(rung.num_graphs, 2)).astype(np.float32)
+    return dataclasses.replace(rung, prefactor=dataclasses.replace(
+        rung.prefactor, approximate_floatfactors=factors, has_approximate_floatfactors=True))
+
+
+def _approximate_small_rung(programs, name: str):
+    if name.startswith("seeded"):
+        n_params = int(name.split("=")[1])
+        return _approximate(synthetic_rung(n_params + 5, 5, n_params, (6, 4, 4, 2)), seed=n_params)
+    program, rung = name.rstrip("]").split("[")
+    return programs[program][int(rung)]
+
+
+@pytest.mark.parametrize("batch", [1, 33, 129])
+@pytest.mark.parametrize("name", [*(f"{p}[{r}]" for p, r in APPROX_SMALL_RUNGS), "seeded P=130",
+                                  "seeded P=200", "seeded P=300"])
+def test_front_end_bits_through_closed_form_reader(programs, name, batch):
+    """K7b's arithmetic on the CPU: the plain front end's per-shot bits, the
+    ones ``ShotRows`` reads (node-phase list row t for the closed-form slot
+    t), fed to the float32 closed-form reader, equal the plain approximate
+    evaluator within APPROX_RTOL (1e-6, inside the card's gate of 1e-5) of the
+    row's magnitude, on every approximate small rung and on seeded ones of one-
+    and two-byte list indices."""
+    csg = _approximate_small_rung(programs, name)
+    tables = ExactTables(csg)
+    assert tables.approximate and exact_kernel.configuration(tables.num_graphs) == "small"
+    x = np.random.default_rng(batch).integers(0, 2, size=(batch, tables.n_params), dtype=np.uint8)
+    front = bit_lists.sliced_front_end(_lists_of(tables), tables.dims, x)
+    parities = {k: torch.from_numpy(np.asarray(v)) for k, v in front.items()}
+    xt = torch.from_numpy(x)
+    got = closed_form.closed_form_abs(tables, xt, torch.float32, parities)
+    want = evaluate.evaluate_abs(tables.circuit(), xt)
+    assert got.dtype == torch.float32 and got.shape == (batch,)
+    err = (got - want).abs()
+    assert bool((err <= 1e-8 + APPROX_RTOL * want).all()), float((err / want.clamp_min(1e-30)).max())
+    np.testing.assert_array_equal(got.numpy(), closed_form.closed_form_abs(tables, xt, torch.float32).numpy())
 
 
 @pytest.mark.parametrize("n_params", [160, 300])
@@ -479,7 +545,8 @@ def test_the_port_imports_neither_jax_nor_tsim_tpu():
     files = [*sorted((REPO / "tsim_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
              REPO / "dev" / "torch_kernel_ablate.py", REPO / "dev" / "torch_profile_d3.py",
              REPO / "dev" / "torch_walk_variant.py", REPO / "dev" / "torch_time_rungs.py",
-             REPO / "dev" / "torch_fma_variant.py"]
+             REPO / "dev" / "torch_fma_variant.py", REPO / "dev" / "torch_copy_probe.py",
+             REPO / "dev" / "torch_call_time.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):

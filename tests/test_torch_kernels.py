@@ -302,7 +302,7 @@ def test_exact_kernels_match_plain_version(exact_rungs, cuda, batch):
 def test_exact_kernels_take_rows_over_128_parameters(cuda, n_params, batch):
     """Seeded rungs of all four families past four packed words: the wide
     kernels (40 graphs) through the bit-sliced front end, the small ones (5
-    graphs) with the row in shared memory; exact bit for bit, approximate
+    graphs) through the small front end; exact bit for bit, approximate
     within rtol 1e-5 of the batch's largest magnitude."""
     exact_kernel.reset_launch_counts()
     for graphs in (5, 40):
@@ -369,6 +369,40 @@ def test_exact_small_equals_plain_exact_evaluator(exact_rungs, cuda, batch):
         seen += 1
     assert seen == 4 + 8 + 3
     assert exact_kernel.launch_counts["exact_small"] == 2 * seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33, 129, 16384])
+def test_approx_small_matches_plain_approximate_evaluator(exact_rungs, cuda, batch):
+    """K7b, on the small front end it shares with K2 and K7a, against the
+    plain approximate evaluator within rtol 1e-5: of the row's magnitude on
+    every approximate rung under 24 graphs of the committed programs; of the
+    batch's largest magnitude on seeded rungs of all four families over 130,
+    200 and 300 parameters (two-byte list indices), whose random graph sums
+    cancel on some rows, as in the test above; whole and ragged blocks."""
+    rungs = [(n, c) for n, c in exact_rungs if c.num_graphs < kernel.SMALL_G_CUTOFF]
+    for p in (130, 200, 300):
+        rung = synthetic_rung(p + 7, 5, p, (6, 4, 4, 2))
+        factors = np.random.default_rng(p).normal(size=(5, 2)).astype(np.float32)
+        rungs.append((f"seeded P={p}", dataclasses.replace(rung, prefactor=dataclasses.replace(
+            rung.prefactor, approximate_floatfactors=factors, has_approximate_floatfactors=True))))
+    exact_kernel.reset_launch_counts()
+    seen = 0
+    for i, (name, csg) in enumerate(rungs):
+        tables = ExactTables(csg).to(cuda)
+        if not tables.approximate:
+            continue
+        x = _rows(tables.n_params, batch, seed=i, device=cuda)
+        assert exact_kernel.approx_partials(tables, x).shape == (1, batch, 2)
+        got = evaluate_abs_exact(tables, x)
+        want = evaluate_abs(tables.circuit(), x)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), (name, batch)
+        scale = want.max() if name.startswith("seeded") else want
+        assert ((got - want).abs() <= ATOL + RTOL * scale).all(), (name, batch)
+        seen += 1
+    assert seen == 2 + 3
+    assert exact_kernel.launch_counts["approx_small"] == 2 * seen
 
 
 @pytest.mark.cuda

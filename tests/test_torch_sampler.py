@@ -10,13 +10,11 @@ such rows must be rare; in exact mode every bit must be equal.
 
 import warnings
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import tsim_tpu
-import tsim_tpu.sampler as jax_sampler_mod
 from dev.export_torch_program import compile_cultivation, compile_d3, export_sampler, jax_replay
 from tsim_tpu_torch import sampler as port_sampler
 from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample
@@ -94,15 +92,6 @@ def test_measurement_sampler_runs():
     assert port.sample(0).shape == (0, 2)
 
 
-def test_pack_bitplanes_matches_tsim_tpu():
-    rng = np.random.default_rng(0)
-    for batch in (1, 8, 1001):
-        out = rng.integers(0, 2, size=(batch, 20)).astype(np.uint8)
-        want = np.asarray(jax_sampler_mod._pack_bitplanes(jnp.asarray(out)))
-        got = port_sampler._pack_bitplanes(torch.from_numpy(out)).numpy()
-        np.testing.assert_array_equal(got, want)
-
-
 @pytest.fixture(scope="module")
 def d3():
     return distillation_d3(p=0.05)
@@ -139,15 +128,15 @@ def test_observable_layouts(d3):
 
 
 def test_unported_options_raise(d3, tmp_path):
-    """Postselection and reference samples are ported (test_torch_postselection.py);
-    checkpointing, other circuits and fully-direct programs still raise."""
+    """Postselection and reference samples are ported (test_torch_postselection.py),
+    and so is checkpointing (test_torch_checkpoint.py); other circuits and
+    fully-direct programs still raise."""
     s = d3.compile_detector_sampler(seed=0, device="cpu")
     assert s.sample(10, postselection_mask=np.ones(15, bool)).shape == (10, 15)
     assert s.sample(10, use_detector_reference_sample=True).shape == (10, 15)
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        s.save(tmp_path / "sampler.ckpt")
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        port_sampler.CompiledDetectorSampler.load(tmp_path / "sampler.ckpt")
+    s.save(tmp_path / "sampler.ckpt")
+    restored = port_sampler.CompiledDetectorSampler.load(tmp_path / "sampler.ckpt")
+    np.testing.assert_array_equal(restored.sample(10), s.sample(10))
     with pytest.raises(ValueError, match="mutually exclusive"):
         s.sample(10, separate_observables=True, append_observables=True)
     with pytest.raises(NotImplementedError, match="distillation_d3"):

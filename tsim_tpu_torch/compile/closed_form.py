@@ -1,5 +1,5 @@
-"""Closed-form tables of the approximate finisher (``approx_wide``, K6), and
-their plain reader.
+"""Closed-form tables of the approximate finisher (``approx_wide``, K6;
+``approx_small``, K7b), and their plain reader.
 
 A rung with approximate floatfactors is summed in float32, graph by graph,
 so its per-graph product need not be carried as Z[w] integers. A node-phase
@@ -45,8 +45,7 @@ import torch
 
 from ..core.exact_scalar import INV_SQRT2
 from ..ops.gf2 import matmul_gf2
-from .sample_tables import unpack_words
-from .terms import evaluate_phase_pairs
+from .terms import phase_pair_product
 
 Z_SHIFT, E_SHIFT, H_SHIFT, PHI_SHIFT = 0, 9, 19, 28
 FIELD_MAX = {"zero count": (1 << 9) - 1, "count of c": (1 << 10) - 1, "half powers of two": (1 << 9) - 1}
@@ -163,13 +162,35 @@ def build_closed_form(circuit) -> dict:
     )
 
 
-def closed_form_graph_values(tables, x: torch.Tensor, dtype=torch.float64):
+def plain_parities(circuit, x: torch.Tensor) -> dict:
+    """The parities the closed-form reader takes, by ``x @ params mod 2``, in
+    the per-shot layout of the kernels' front end
+    (``bit_lists.sliced_front_end``): ``node`` (B, T1, G), ``alpha`` and
+    ``beta`` (B, T4, G), ``tot`` (B, G) the half-pi total mod 8, ``sign``
+    (B, G) the pi-product sign bit; int64."""
+    np_f, hp, pp, qp = circuit.node_phases, circuit.halfpi_phases, circuit.pi_products, circuit.phase_pairs
+
+    def par(params):  # (T, G, P) -> (B, T, G)
+        return matmul_gf2(params.to(torch.uint8), x).to(torch.int64)
+
+    psi = (pp.psi_const.to(torch.int64)[None] + par(pp.psi_params)) & 1
+    phi = (pp.phi_const.to(torch.int64)[None] + par(pp.phi_params)) & 1
+    return dict(
+        node=par(np_f.params), alpha=par(qp.alpha_params), beta=par(qp.beta_params),
+        tot=(par(hp.params) * hp.coeffs.to(torch.int64)[None]).sum(dim=1) & 7,
+        sign=(psi * phi).sum(dim=1) & 1,
+    )
+
+
+def closed_form_graph_values(tables, x: torch.Tensor, dtype=torch.float64, parities: dict | None = None):
     """Plain reader of the closed-form tables: the per-graph values (re, im),
     each (B, G) of ``dtype``, of the rows ``x`` (B, P) uint8, approximate
     factor included. It walks the kernel's steps (counters, one conversion
     per graph) with torch operations: in float32 on the buffer's float tables,
     to follow the kernel's rounding; in float64 with those tables formed anew
-    in float64, to hold the counters and the formula to the exact integers."""
+    in float64, to hold the counters and the formula to the exact integers.
+    ``parities`` (the layout of :func:`plain_parities`, which is the default)
+    gives the rows' parities from elsewhere, such as the kernels' front end."""
     v = tables.views()
     circuit = tables.circuit()
     dev = x.device
@@ -182,24 +203,18 @@ def closed_form_graph_values(tables, x: torch.Tensor, dtype=torch.float64):
         unit_t, mag_t, pre_t = (torch.from_numpy(a).to(dev) for a in consts)
     else:
         unit_t, mag_t, pre_t = (v[k].to(dtype) for k in ("cf_unit", "cf_mag", "cf_pre"))
+    par = plain_parities(circuit, x) if parities is None else parities
 
     def u32(a):  # int32 words as wrapped int64
         return a.to(torch.int64) & 0xFFFFFFFF
 
     acc = u32(v["cf_base"])[None, :].expand(B, G).clone()
-    if tc:
-        params = unpack_words(v["np_words"][:tc], tables.n_params).to(torch.uint8)
-        par = matmul_gf2(params, x).to(torch.int64)  # (B, tc, G)
-        acc = acc + (par * u32(v["cf_delta"])[None]).sum(dim=1)
-    hp, pp = circuit.halfpi_phases, circuit.pi_products
+    if tc:  # node-phase slot t is node row t, in the tables' order
+        acc = acc + (par["node"][:, :tc].to(torch.int64) * u32(v["cf_delta"])[None]).sum(dim=1)
     if tables.dims[1]:
-        par = matmul_gf2(hp.params.to(torch.uint8), x).to(torch.int64)
-        tot = (par * hp.coeffs.to(torch.int64)[None]).sum(dim=1) & 7
-        acc = acc + (tot << (PHI_SHIFT + 1))
+        acc = acc + ((par["tot"].to(torch.int64) & 7) << (PHI_SHIFT + 1))
     if tables.dims[2]:
-        psi = (pp.psi_const.to(torch.int64)[None] + matmul_gf2(pp.psi_params.to(torch.uint8), x)) & 1
-        phi = (pp.phi_const.to(torch.int64)[None] + matmul_gf2(pp.phi_params.to(torch.uint8), x)) & 1
-        acc = acc + (((psi * phi).sum(dim=1) & 1) << (PHI_SHIFT + 3))
+        acc = acc + (par["sign"].to(torch.int64) << (PHI_SHIFT + 3))
     acc = acc & 0xFFFFFFFF
 
     zero = (acc >> Z_SHIFT) & FIELD_MAX["zero count"]
@@ -207,7 +222,7 @@ def closed_form_graph_values(tables, x: torch.Tensor, dtype=torch.float64):
     h = (acc >> H_SHIFT) & FIELD_MAX["half powers of two"]
     phi = acc >> PHI_SHIFT
 
-    pairs = evaluate_phase_pairs(circuit.phase_pairs, x)  # exact, (B, G)
+    pairs = phase_pair_product(circuit.phase_pairs, par["alpha"], par["beta"])  # exact, (B, G)
     c = pairs.coeffs.to(dtype)
     pr = c[0] + (c[1] - c[3]) * INV_SQRT2
     pi_ = c[2] + (c[1] + c[3]) * INV_SQRT2
@@ -225,9 +240,9 @@ def closed_form_graph_values(tables, x: torch.Tensor, dtype=torch.float64):
     return torch.where(vanishes, nothing, re), torch.where(vanishes, nothing, im)
 
 
-def closed_form_abs(tables, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def closed_form_abs(tables, x: torch.Tensor, dtype=torch.float32, parities: dict | None = None) -> torch.Tensor:
     """|graph sum| per row through the closed-form tables: (B, P) uint8 ->
     (B,) of ``dtype``."""
-    re, im = closed_form_graph_values(tables, x, dtype)
+    re, im = closed_form_graph_values(tables, x, dtype, parities)
     sre, sim = re.sum(dim=1), im.sum(dim=1)
     return torch.sqrt(sre * sre + sim * sim)

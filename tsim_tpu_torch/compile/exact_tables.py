@@ -8,9 +8,9 @@ factors. The CUDA kernels (``kernels/csrc/exact_eval.cu``) and the plain
 reader (:meth:`ExactTables.circuit`, fed to ``compile/evaluate.py``) walk
 the same segments, in the order of :func:`exact_table_layout`. Parity
 parameters are packed into ``W = ceil(P / 32)`` words per (term, graph)
-with ``sample_tables.pack_words``, any number of them (the plain reader and
-the small kernels read these), and listed by set parameter for the
-bit-sliced wide kernels (``compile/bit_lists.py``). A rung with approximate
+with ``sample_tables.pack_words``, any number of them (the plain reader reads
+these), and listed by set parameter for the kernels' bit-sliced front ends
+(``compile/bit_lists.py``). A rung with approximate
 floatfactors also carries the closed-form tables of its node-phase family
 (``compile/closed_form.py``), which ``approx_wide`` reads in place of
 ``np_phases``.

@@ -105,14 +105,20 @@ def evaluate_pi_products(fam, x: torch.Tensor) -> ExactScalarArray:
 
 def evaluate_phase_pairs(fam, x: torch.Tensor) -> ExactScalarArray:
     """Product over live terms of ``1 + w^a + w^b - w^(a+b)``."""
+    ra = matmul_gf2(leaf(fam.alpha_params, x.device, torch.uint8), x)
+    rb = matmul_gf2(leaf(fam.beta_params, x.device, torch.uint8), x)
+    return phase_pair_product(fam, ra, rb)
+
+
+def phase_pair_product(fam, ra: torch.Tensor, rb: torch.Tensor) -> ExactScalarArray:
+    """:func:`evaluate_phase_pairs` from the terms' alpha and beta parities,
+    each (B, T, G)."""
     t, g = np.shape(fam.alpha)
+    dev = ra.device
     if t == 0:
-        return _identity(x.shape[0], g, x.device)
-    dev = x.device
-    ra = matmul_gf2(leaf(fam.alpha_params, dev, torch.uint8), x).to(torch.int32)
-    rb = matmul_gf2(leaf(fam.beta_params, dev, torch.uint8), x).to(torch.int32)
-    a = (leaf(fam.alpha, dev) + 4 * ra) & 7
-    b = (leaf(fam.beta, dev) + 4 * rb) & 7
+        return _identity(ra.shape[0], g, dev)
+    a = (leaf(fam.alpha, dev) + 4 * ra.to(torch.int32)) & 7
+    b = (leaf(fam.beta, dev) + 4 * rb.to(torch.int32)) & 7
     term_vals = omega_coeffs(a) + omega_coeffs(b) - omega_coeffs((a + b) & 7)
     term_vals[0] += 1
     term_vals = _mask_terms(term_vals, fam.counts, dev)

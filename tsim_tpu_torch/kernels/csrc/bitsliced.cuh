@@ -1,7 +1,8 @@
 // Bit-sliced parity front end of the wide kernels (sample_eval.cu `wide`,
 // exact_eval.cu `exact_wide` and `approx_wide`), and of the small ones
-// (sample_eval.cu `small`, exact_eval.cu `exact_small`), which use its planes
-// and lists with a thread a mask (small_front_end, at the end).
+// (sample_eval.cu `small`, exact_eval.cu `exact_small` and `approx_small`),
+// which use its planes and lists with a thread a mask (small_front_end, at
+// the end).
 //
 // A parity is x . mask mod 2 for a shot's 0/1 parameter row x and a term's
 // parameter mask. The TPU kernels form it as a matrix-unit dot; the first
@@ -351,8 +352,8 @@ struct Column {
 //
 // With fewer than 24 graphs a thread a graph would leave most of the block
 // idle in the integer stage. The small kernels (sample_eval.cu `small`, K2;
-// exact_eval.cu `exact_small`, K7a) take kShots shots a block, a thread a
-// shot, and share this front end. It builds the planes; then a thread is a
+// exact_eval.cu `exact_small`, K7a, and `approx_small`, K7b) take kShots shots
+// a block, a thread a shot, and share this front end. It builds the planes; then a thread is a
 // mask: the R * G list rows of the rung are dealt out over the block, and
 // each thread XORs the planes its row lists for all 128 shots and leaves the
 // parity entry in shared memory (row r of graph g at rows[r * G + g]). Then a

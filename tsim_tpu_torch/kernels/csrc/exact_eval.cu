@@ -11,14 +11,10 @@
 //   _kernel_approx_t (K7b, small-G layout)   -> approx_small
 // Their shared body is _product_body / _product_body_t. On the TPU every
 // parity is a matrix-unit dot of the shot's 0/1 parameters against the
-// term's mask. Here the wide kernels and the small exact one form parities
-// bit-sliced over the 128 shots of a block (bitsliced.cuh: bit planes in
-// shared memory, an XOR per listed mask bit per 32 shots, any number of
-// parameters; the small exact kernel through the small front end it shares
-// with sample_eval.cu's small f32 kernel), and the small approximate one as
-// __popc(x & w) & 1 over the row's packed words, held in registers up to
-// four words and in shared memory beyond (word i of thread t at
-// xs[i * blockDim.x + t], the block shrunk for long rows).
+// term's mask. Here every kernel forms parities bit-sliced over the 128 shots
+// of a block (bitsliced.cuh: bit planes in shared memory, an XOR per listed
+// mask bit per 32 shots, any number of parameters; the small kernels through
+// the small front end they share with sample_eval.cu's small f32 kernel).
 //
 // The exact finisher's product follows _product_body step for step, so that
 // the int32 coefficients grow as they do in tsim_tpu: per node-phase term
@@ -80,13 +76,15 @@
 // no work that depends on the data, and so takes the same time on rows
 // whose products mostly vanish as on rows where few do.
 // "small" (G < 24) gives each thread one shot and loops over the graphs; the
-// threads of a warp read the same table entry, which L1 broadcasts. The exact
-// one (K7a) first forms the parities of its block's 128 shots bit-sliced, a
-// thread a (row, graph) mask and then a thread a (graph, 32-shot group) word
-// for the half-pi total and the pi-product sign (bitsliced::small_front_end),
-// so that the per-shot stage reads one bit a term and no lane repeats a
-// parity's table loads. What is left per shot is the product itself: a few
-// dozen int32 operations per graph and live term, as in the wide kernel.
+// threads of a warp read the same table entry, which L1 broadcasts. Both small
+// kernels (K7a, K7b) first form the parities of their block's 128 shots
+// bit-sliced, a thread a (row, graph) mask and then a thread a (graph, 32-shot
+// group) word for the half-pi total and the pi-product sign
+// (bitsliced::small_front_end), so that the per-shot stage reads one bit a
+// term and no lane repeats a parity's table loads. What is left per shot is
+// the product itself: a few dozen int32 operations per graph and live term
+// (K7a, as in the wide kernel), or an add per live node-phase term, the phase
+// pairs and one conversion per graph (K7b, as in approx_wide).
 //
 // Build with -O3 and without --use_fast_math or -ftz.
 
@@ -99,7 +97,6 @@ namespace {
 
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr int kMaxTile = 128;  // graphs per wide block (its threads)
-constexpr int kSmallThreads = 128;
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
 // Fields of a closed-form word (compile/closed_form.py): the zero count from
@@ -111,23 +108,14 @@ constexpr int kMaxBias = 160;  // c^145 already leaves the float32 range; the ho
 constexpr int kMagWords = 2 * (2 * kMaxBias + 1);
 
 // Pointers into the flat table buffer; the segment order matches
-// tsim_tpu_torch/compile/exact_tables.py::exact_table_layout.
+// tsim_tpu_torch/compile/exact_tables.py::exact_table_layout. The kernels read
+// every parity's mask from the bit lists; the packed mask words and the half-pi
+// and pi-product tables are the plain reader's, and make_tables steps over them.
 struct Tables {
   const int32_t* np_phase;
-  const uint32_t* np_w;
   const int32_t* np_cnt;
-  const int32_t* hp_c;
-  const uint32_t* hp_w;
-  const int32_t* hp_len;
-  const int32_t* psi_c;
-  const int32_t* phi_c;
-  const uint32_t* psi_w;
-  const uint32_t* phi_w;
-  const int32_t* pp_len;
   const int32_t* qa;
   const int32_t* qb;
-  const uint32_t* qa_w;
-  const uint32_t* qb_w;
   const int32_t* qp_cnt;
   const int32_t* pf_phase;
   const int32_t* pf_ff;
@@ -139,8 +127,8 @@ struct Tables {
   const float* cf_pre;       // (2, G): exact floatfactor times approximate factor, re then im
   const float* cf_unit;      // (16, 2): cos, sin of k pi / 8
   const float* cf_mag;       // (2 EB + 1, 2): c^(j - EB), and that times sqrt 2
-  bitsliced::Lists lists;  // the set parameters of every mask, for the wide kernels
-  int G, T1, T2, T3, T4, W;
+  bitsliced::Lists lists;  // the set parameters of every mask
+  int G, T1, T2, T3, T4;
   int TC, EB;  // most live node-phase terms of a graph; the bias of the count of c
 };
 
@@ -158,20 +146,13 @@ Tables make_tables(const int32_t* flat, bool closed, int G, int T1, int T2, int 
   const long long g3 = (long long)T3 * G, g4 = (long long)T4 * G;
   Tables t;
   t.np_phase = take(g1);
-  t.np_w = words(g1 * W);
+  take(g1 * W);                // np_words
   t.np_cnt = take(G);
-  t.hp_c = take(g2);
-  t.hp_w = words(g2 * W);
-  t.hp_len = take(G);
-  t.psi_c = take(g3);
-  t.phi_c = take(g3);
-  t.psi_w = words(g3 * W);
-  t.phi_w = words(g3 * W);
-  t.pp_len = take(G);
+  take(g2 * (1 + W) + G);      // hp_coeffs, hp_words, hp_len
+  take(g3 * 2 * (1 + W) + G);  // pp_psi_c, pp_phi_c, pp_psi_words, pp_phi_words, pp_len
   t.qa = take(g4);
   t.qb = take(g4);
-  t.qa_w = words(g4 * W);
-  t.qb_w = words(g4 * W);
+  take(g4 * 2 * W);            // qp_alpha_words, qp_beta_words
   t.qp_cnt = take(G);
   t.pf_phase = take(G);
   t.pf_ff = take(4LL * G);
@@ -187,7 +168,6 @@ Tables make_tables(const int32_t* flat, bool closed, int G, int T1, int T2, int 
   t.T2 = T2;
   t.T3 = T3;
   t.T4 = T4;
-  t.W = W;
   t.TC = TC;
   t.EB = EB;
   return t;
@@ -256,89 +236,6 @@ __device__ __forceinline__ void add_exact(Zw& a, const Zw& b) {
   a.p = min(a.p, b.p);
   reduce_step(a);
 }
-
-// Word i (bits 32i .. 32i + 31) of a row of P parameter bytes (bit 0 of each).
-__device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ row, int P, int i) {
-  uint32_t word = 0;
-  const int lo = 32 * i, hi = min(P, lo + 32);
-  for (int p = lo; p < hi; ++p) word |= (uint32_t)(row[p] & 1) << (p - lo);
-  return word;
-}
-
-// One shot's packed row in W <= 4 registers.
-template <int W>
-struct Row {
-  uint32_t x[W];
-
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ row, int P, int) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) x[i] = pack_word(row, P, i);
-  }
-  __device__ __forceinline__ int words() const { return W; }
-  __device__ __forceinline__ int parity(const uint32_t* w_src) const {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) acc ^= x[i] & __ldg(w_src + i);
-    return __popc(acc) & 1;
-  }
-};
-
-// One shot's packed row of any number of words, in dynamic shared memory:
-// word i of thread t at xs[i * blockDim.x + t] (one bank a thread).
-template <>
-struct Row<0> {
-  uint32_t* mine;
-  int W;
-
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ row, int P, int n_words) {
-    extern __shared__ uint32_t xs_dyn[];
-    mine = xs_dyn + threadIdx.x;
-    W = n_words;
-    for (int i = 0; i < W; ++i) mine[i * blockDim.x] = pack_word(row, P, i);
-  }
-  __device__ __forceinline__ int words() const { return W; }
-  __device__ __forceinline__ int parity(const uint32_t* w_src) const {
-    uint32_t acc = 0;
-    for (int i = 0; i < W; ++i) acc ^= mine[i * blockDim.x] & __ldg(w_src + i);
-    return __popc(acc) & 1;
-  }
-};
-
-// Parities of one shot by popcount over its packed row (K7b).
-template <class RowT>
-struct PopcountParities {
-  const Tables& tb;
-  const RowT& row;
-  int g;
-
-  __device__ __forceinline__ const uint32_t* mask(const uint32_t* words, int t) const {
-    return words + (long long)(t * tb.G + g) * row.words();
-  }
-  __device__ __forceinline__ void node(int t, int (&p)[1]) const {
-    p[0] = row.parity(mask(tb.np_w, t));
-  }
-  // Sum over the live half-pi rows of coeff * parity.
-  __device__ __forceinline__ void halfpi(int (&tot)[1]) const {
-    tot[0] = 0;
-    const int len = __ldg(tb.hp_len + g);
-    for (int t = 0; t < len; ++t)
-      tot[0] += __ldg(tb.hp_c + t * tb.G + g) * row.parity(mask(tb.hp_w, t));
-  }
-  // XOR over the live pi-product terms of psi & phi.
-  __device__ __forceinline__ void sign(int (&e)[1]) const {
-    e[0] = 0;
-    const int len = __ldg(tb.pp_len + g);
-    for (int t = 0; t < len; ++t) {
-      const int i = t * tb.G + g;
-      e[0] ^= (__ldg(tb.psi_c + i) ^ row.parity(mask(tb.psi_w, t))) &
-              (__ldg(tb.phi_c + i) ^ row.parity(mask(tb.phi_w, t)));
-    }
-  }
-  __device__ __forceinline__ void pair(int t, int (&p)[1], int (&q)[1]) const {
-    p[0] = row.parity(mask(tb.qa_w, t));
-    q[0] = row.parity(mask(tb.qb_w, t));
-  }
-};
 
 // The phase-pair family of _product_body: v[k] * (1 + w^a + w^b - w^(a+b)) per
 // live term, three rotations of v[k], then a reduce step per slot.
@@ -661,20 +558,31 @@ __global__ void __launch_bounds__(bitsliced::kShots)
   out_p[b] = is_zero(acc) ? 0 : acc.p;
 }
 
-// K7b: one thread per shot, float32 sum over all graphs of the closed-form
-// term, its two small tables read from global memory; out[b][re, im].
-template <int W>
-__global__ void __launch_bounds__(kSmallThreads)
+// K7b: K7a's block and front end with the closed-form float32 finisher of
+// approx_wide. The tables cf_unit and cf_mag are copied to shared memory
+// first (a barrier of its own: a term-free rung's front end has none); then a
+// thread is a shot and adds the closed-form term of every graph in order, on
+// bits read from the front end's rows. out[b][re, im]. At least 8 blocks an
+// SM: left free, ptxas gave the one-byte-index instance 40 registers and a
+// 4-byte spill; asked for 8 blocks, it takes 56 and spills nothing.
+template <int IB>
+__global__ void __launch_bounds__(bitsliced::kShots, 8)
     approx_small(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
                  float* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float unit[32], mag[kMagWords];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 32; i += blockDim.x) unit[i] = __ldg(tb.cf_unit + i);
+  for (int i = tid; i < 2 * (2 * tb.EB + 1); i += blockDim.x) mag[i] = __ldg(tb.cf_mag + i);
+  __syncthreads();
+  const long long b0 = (long long)blockIdx.x * bitsliced::kShots;
+  const bitsliced::Entry<bitsliced::kGroups>* rows = bitsliced::small_front_end<IB>(
+      x, B, P, b0, tb.lists, bitsliced::dynamic_entries<bitsliced::kGroups>());
+  const long long b = b0 + tid;
   if (b >= B) return;
-  Row<W> row;
-  row.load(x + b * P, P, tb.W);
   float sre[1] = {0.0f}, sim[1] = {0.0f};
   for (int g = 0; g < tb.G; ++g) {
-    const PopcountParities<Row<W>> par{tb, row, g};
-    closed_form_add<bitsliced::kAllStages, 1>(tb, g, par, tb.cf_unit, tb.cf_mag, sre, sim);
+    const bitsliced::ShotRows par(rows, tb.lists, g, tid);
+    closed_form_add<bitsliced::kAllStages, 1>(tb, g, par, unit, mag, sre, sim);
   }
   out[b * 2] = sre[0];
   out[b * 2 + 1] = sim[0];
@@ -723,49 +631,22 @@ cudaError_t launch_approx_wide(const uint8_t* x, long long B, int P, const Table
                                         : launch_approx_wide_as<M, 2>(x, B, P, tb, tile, out, stream);
 }
 
-template <int IB>
-cudaError_t launch_exact_small(const uint8_t* x, long long B, int P, const Tables& tb,
-                               int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
+// A small kernel (K7a, K7b): 128 shots a block, the front end's dynamic shared
+// memory, IB from the parameter count.
+template <class Kernel, class... Out>
+cudaError_t launch_small(Kernel kernel, const uint8_t* x, long long B, int P, const Tables& tb,
+                         cudaStream_t stream, Out... out) {
   const size_t bytes = bitsliced::small_shared_bytes(P, tb.G, tb.T1, tb.T2, tb.T3, tb.T4);
-  const cudaError_t err = allow_shared(exact_small<IB>, bytes);
+  const cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (B + bitsliced::kShots - 1) / bitsliced::kShots;
-  exact_small<IB><<<(unsigned)blocks, bitsliced::kShots, bytes, stream>>>(x, B, P, tb, out_c, out_p);
-  return cudaSuccess;
-}
-
-// K7b. W in 1..4: rows in registers; W = 0: rows of tb.W words in shared
-// memory, fewer shots a block where a row is long, down to one warp.
-template <int W>
-cudaError_t launch_approx_small(const uint8_t* x, long long B, int P, const Tables& tb, float* out,
-                                cudaStream_t stream) {
-  int threads = kSmallThreads;
-  size_t bytes = 0;
-  if (W == 0) {
-    while (threads > 32 && sizeof(uint32_t) * threads * tb.W > (size_t)kDefaultSharedBytes) threads /= 2;
-    bytes = sizeof(uint32_t) * threads * tb.W;
-    const cudaError_t err = allow_shared(approx_small<W>, bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  approx_small<W><<<blocks, threads, bytes, stream>>>(x, B, P, tb, out);
+  kernel<<<(unsigned)blocks, bitsliced::kShots, bytes, stream>>>(x, B, P, tb, out...);
   return cudaSuccess;
 }
 
 bool valid_shape(long long B, int G, int W, int wide, int tile) {
   if (B <= 0 || G <= 0 || W <= 0) return false;
   return !wide || (tile >= 32 && tile <= kMaxTile && (tile & (tile - 1)) == 0);
-}
-
-cudaError_t launch_approx_small_by_words(const uint8_t* x, long long B, int P, const Tables& tb,
-                                         float* out, cudaStream_t stream) {
-  switch (tb.W) {
-    case 1: return launch_approx_small<1>(x, B, P, tb, out, stream);
-    case 2: return launch_approx_small<2>(x, B, P, tb, out, stream);
-    case 3: return launch_approx_small<3>(x, B, P, tb, out, stream);
-    case 4: return launch_approx_small<4>(x, B, P, tb, out, stream);
-    default: return launch_approx_small<0>(x, B, P, tb, out, stream);
-  }
 }
 
 int finish(cudaError_t err) { return err != cudaSuccess ? (int)err : (int)cudaGetLastError(); }
@@ -790,8 +671,7 @@ extern "C" int tsim_exact_eval(const void* x, long long B, int P, const void* fl
   if (wide)
     return finish(one ? launch_exact_wide<1>(xp, B, P, tb, tile, oc, op, s)
                       : launch_exact_wide<2>(xp, B, P, tb, tile, oc, op, s));
-  return finish(one ? launch_exact_small<1>(xp, B, P, tb, oc, op, s)
-                    : launch_exact_small<2>(xp, B, P, tb, oc, op, s));
+  return finish(launch_small(one ? &exact_small<1> : &exact_small<2>, xp, B, P, tb, s, oc, op));
 }
 
 // Approximate finisher (K6 wide, K7b small) of a rung whose buffer holds the
@@ -807,7 +687,8 @@ extern "C" int tsim_approx_eval(const void* x, long long B, int P, const void* f
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) return finish(launch_approx_wide<bitsliced::kAllStages>(xp, B, P, tb, tile, of, s));
-  return finish(launch_approx_small_by_words(xp, B, P, tb, of, s));
+  const bool one = bitsliced::index_bytes(P) == 1;
+  return finish(launch_small(one ? &approx_small<1> : &approx_small<2>, xp, B, P, tb, s, of));
 }
 
 // K6 with the stages of variant `variant` (0 empty: the prefactor and the

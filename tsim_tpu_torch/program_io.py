@@ -271,13 +271,20 @@ def flatten(exported: ExportedProgram) -> tuple[dict, dict]:
 
 def save_npz(path, exported: ExportedProgram) -> None:
     """Write ``exported`` as one ``.npz`` of arrays plus a JSON header."""
-    arrays, header = flatten(exported)
+    write_npz(path, *flatten(exported))
+
+
+def write_npz(path, arrays: dict, header: dict) -> None:
+    """Write named arrays and a JSON-able header as one ``.npz`` file at
+    ``path``, whatever its suffix."""
     blob = np.frombuffer(json.dumps(header, sort_keys=True).encode(), np.uint8)
-    np.savez_compressed(path, __header__=blob, **arrays)
+    with open(path, "wb") as fh:
+        np.savez_compressed(fh, __header__=blob, **arrays)
 
 
-def load_npz(path) -> ExportedProgram:
-    """Read a file written by :func:`save_npz` (no pickle is involved)."""
+def read_npz(path) -> tuple[dict, dict]:
+    """(arrays, header) of a file written by :func:`write_npz` (no pickle is
+    involved), checked for this module's format version."""
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     header = json.loads(arrays.pop("__header__").tobytes().decode())
@@ -285,6 +292,16 @@ def load_npz(path) -> ExportedProgram:
         raise ValueError(
             f"{path}: format version {header['format_version']}, expected {FORMAT_VERSION}"
         )
+    return arrays, header
+
+
+def load_npz(path) -> ExportedProgram:
+    """Read a file written by :func:`save_npz`."""
+    return unflatten(*read_npz(path))
+
+
+def unflatten(arrays: dict, header: dict) -> ExportedProgram:
+    """The inverse of :func:`flatten`."""
     components = []
     for ci, comp in enumerate(header["components"]):
         rungs = []

@@ -2,16 +2,19 @@
 
 Counterpart of ``tsim_tpu/sampler.py`` for programs that come as data
 (``program_io``). Each batch draws noise on the device, copies the direct
-outputs, runs every component's plugged-circuit ladder (one evaluation
-per rung, f32 or exact, chain-rule Bernoulli draws), packs the bits along
-the shot axis, copies them to the host and unpacks them there. With a
-postselection mask, shots whose direct detectors fire are discarded on the
-device before any evaluation. :class:`CompiledStateProbs` evaluates
-joint-mode programs exactly.
+outputs and runs every component's plugged-circuit ladder (one evaluation
+per rung, f32 or exact, chain-rule Bernoulli draws). The batches form a
+pipeline: batch k's (shots, outputs) bits are copied to pinned host memory
+on a stream of their own while the device works on batch k + 1
+(:class:`_RowsToHost`). With a postselection mask, shots whose direct
+detectors fire are discarded on the device before any evaluation.
+:class:`CompiledStateProbs` evaluates joint-mode programs exactly. Every
+sampler saves and loads a checkpoint that continues its sample stream.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import warnings
 from math import ceil
@@ -28,6 +31,7 @@ from .compile.sample_eval import (
 )
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
+from .program_io import ExportedProgram, flatten, read_npz, unflatten, write_npz
 
 
 def _long(a) -> torch.Tensor:
@@ -178,19 +182,81 @@ def _direct_detector_mask(program, num_detectors: int) -> np.ndarray:
     return mask[:num_detectors]
 
 
-def _pack_bitplanes(out: torch.Tensor) -> torch.Tensor:
-    """(B, n) 0/1 uint8 -> (n, ceil(B/8)) uint8, packed along shots, little bit order."""
-    batch, n = out.shape
-    b8 = (batch + 7) // 8
-    planes = out.T
-    if b8 * 8 != batch:
-        planes = torch.nn.functional.pad(planes, (0, b8 * 8 - batch))
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32, device=out.device)
-    return (planes.reshape(n, b8, 8).to(torch.int32) * weights).sum(dim=2).to(torch.uint8)
+class _RowsToHost:
+    """Moves batches of (rows, n) 0/1 uint8 bits on the device into rows of
+    the host bool array ``result``, behind the device's later work.
+
+    On a CUDA device :meth:`push` records an event behind the batch on its
+    device's current stream, has a copy stream wait on it, copies the bits
+    (viewed as bool) into one of two pinned staging buffers there (the second
+    is made only for a second batch), and returns once the
+    batch pushed before it is in ``result``: so the caller enqueues batch k +
+    1's work before the host waits on batch k's copy, and the copy and the
+    host's move overlap the device's work. A staging buffer is reused two
+    pushes later, after its copy has been waited on; the batch's tensor is
+    held until then. A fault of the copy raises from that wait. The host's
+    move is a torch copy, which spreads a large one over the CPU's threads
+    (the first touch of a fresh result's pages is most of its cost). On the
+    CPU the rows are moved at once. :meth:`close` moves what is left.
+    """
+
+    def __init__(self, result: np.ndarray, device: torch.device, rows: int):
+        self.result = result
+        self.cuda = device.type == "cuda"
+        self.pending = collections.deque()  # (copy done, staging buffer, first row, rows, bits)
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.shape = (rows, result.shape[1])
+            self.staging = []  # pinned, made by the first two pushes
+            self.pushed = 0
+
+    def push(self, bits: torch.Tensor, start: int) -> None:
+        """Write ``bits`` into ``result[start : start + len(bits)]``."""
+        n = bits.shape[0]
+        if not self.cuda:
+            self._rows(start, n).copy_(bits.view(torch.bool))
+            return
+        if self.pushed < 2:
+            self.staging.append(torch.empty(self.shape, dtype=torch.bool, pin_memory=True))
+        staging = self.staging[self.pushed % 2]
+        self.pushed += 1
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(bits.device))
+        self.stream.wait_event(ready)
+        with torch.cuda.stream(self.stream):
+            staging[:n].copy_(bits.view(torch.bool), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        self.pending.append((done, staging, start, n, bits))
+        while len(self.pending) > 1:
+            self._move()
+
+    def _rows(self, start: int, n: int) -> torch.Tensor:
+        return torch.from_numpy(self.result[start : start + n])
+
+    def _move(self) -> None:
+        done, staging, start, n, _bits = self.pending.popleft()
+        done.synchronize()
+        self._rows(start, n).copy_(staging[:n])
+
+    def close(self) -> None:
+        while self.pending:
+            self._move()
 
 
-def _check_norm_deviation(max_dev, evaluation: str = "f32") -> None:
-    val = float(max_dev.reshape(-1)[0])
+def _kept_rows(keep: torch.Tensor, count: int) -> torch.Tensor:
+    """The indices of ``keep``'s True entries, ascending, given their
+    ``count``, without a host read: each kept row scatters its index to its
+    rank; the discarded ones all land on a spare slot past the end."""
+    rank = torch.cumsum(keep, dim=0) - 1
+    slot = torch.where(keep, rank, torch.full_like(rank, count))
+    rows = torch.empty(count + 1, dtype=torch.int64, device=keep.device)
+    rows.scatter_(0, slot, torch.arange(keep.shape[0], device=keep.device))
+    return rows[:count]
+
+
+def _check_norm_deviation(max_dev: float, evaluation: str = "f32") -> None:
+    val = float(max_dev)
     if np.isclose(val, 1):
         raise ValueError(
             "A vanishing marginal probability distribution was encountered "
@@ -203,13 +269,6 @@ def _check_norm_deviation(max_dev, evaluation: str = "f32") -> None:
             "This is likely a floating point precision issue.",
             stacklevel=2,
         )
-
-
-def _to_host(bits: torch.Tensor) -> np.ndarray:
-    """(B, n) 0/1 uint8 on the device -> (B, n) bool on the host, carried as
-    bitplanes packed along the shots."""
-    host = _pack_bitplanes(bits).cpu().numpy()
-    return np.unpackbits(host, axis=1, bitorder="little")[:, : bits.shape[0]].T.view(np.bool_)
 
 
 def _resolve_device(device) -> torch.device:
@@ -244,7 +303,9 @@ class _CompiledSamplerBase:
             seed = int(np.random.default_rng().integers(0, 2**30))
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        self._per_term = per_term
         self._program = exported.program
+        self._noise = exported.noise
         self._num_detectors = int(exported.num_detectors)
         self._tables = ProgramTables(exported.program, evaluation, per_term).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
@@ -255,16 +316,40 @@ class _CompiledSamplerBase:
         # monitor warns above norm_deviation_tolerance()).
         self.last_norm_deviation: float | None = None
 
+    # ------------------------------------------------------- checkpointing
+    def _options(self) -> dict:
+        """The constructor's keywords besides ``seed`` and ``device``."""
+        return {"evaluation": self.evaluation, "per_term": self._per_term}
+
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "checkpointing (tsim_tpu's save/load) is not ported yet; it is queued in ROADMAP.md 1.7"
-        )
+        """Checkpoint the sampler as one ``.npz`` (no pickle): the program,
+        noise model and detector count as ``program_io`` writes them, then
+        the class, seed, device type and options, and the generator's state.
+        :meth:`load` rebuilds the tables and continues the same sample stream."""
+        exported = ExportedProgram(program=self._program, noise=self._noise, num_detectors=self._num_detectors)
+        arrays, header = flatten(exported)
+        header["checkpoint"] = {
+            "class": type(self).__name__, "seed": self._reference_seed,
+            "device": self.device.type, "options": self._options(),
+        }
+        arrays["checkpoint.generator_state"] = self._generator.get_state().numpy()
+        write_npz(path, arrays, header)
 
     @classmethod
     def load(cls, path):
-        raise NotImplementedError(
-            "checkpointing (tsim_tpu's save/load) is not ported yet; it is queued in ROADMAP.md 1.7"
-        )
+        """Restore a sampler written by :meth:`save` onto the device type it
+        was saved from (a CUDA checkpoint raises without a card); a
+        checkpoint of another class raises TypeError."""
+        arrays, header = read_npz(path)
+        saved = header.pop("checkpoint", None)
+        if saved is None:
+            raise ValueError(f"{path}: a program file, not a sampler checkpoint")
+        if saved["class"] != cls.__name__:
+            raise TypeError(f"checkpoint holds {saved['class']}, not {cls.__name__}")
+        state = torch.from_numpy(arrays.pop("checkpoint.generator_state"))
+        obj = cls(unflatten(arrays, header), seed=saved["seed"], device=saved["device"], **saved["options"])
+        obj._generator.set_state(state)
+        return obj
 
     def _peak_bytes_per_sample(self) -> int:
         peak = max(8 * self._device_channels.num_f, self._device_channels.peak_bytes_per_shot)
@@ -321,51 +406,45 @@ class _CompiledSamplerBase:
             generator.manual_seed(self._reference_seed)
             f_ref = torch.zeros((1, self._device_channels.num_f), dtype=torch.uint8, device=self.device)
             out, dev = sample_program_with_deviation(self._tables, f_ref, generator)
-            _check_norm_deviation(dev, self.evaluation)
+            _check_norm_deviation(float(dev.reshape(-1)[0]), self.evaluation)
             self._reference = out[0].cpu().numpy().astype(np.bool_)
         return self._reference
 
-    def _sample_batches(self, shots: int, batch_size: int | None = None) -> np.ndarray:
+    def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None) -> np.ndarray:
+        """(shots, num_outputs) bool samples; ``fold``, a (num_outputs,) bool
+        row, is XORed into every row on the device (the reference folds)."""
         self._validate_shot_args(shots, batch_size)
         num_outputs = self._program.num_outputs
         if shots == 0:
             return np.empty((0, num_outputs), dtype=np.bool_)
         self._require_components()
         batch_size = self._resolve_batch_size(shots, batch_size)
-        num_batches = ceil(shots / batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
         max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
-        row = 0
-        for _ in range(num_batches):
-            take = min(batch_size, shots - row)
-            dev = self._sample_batch(batch_size, result[row : row + take])
+        to_host = _RowsToHost(result, self.device, min(batch_size, shots))
+        fold = None if fold is None else torch.as_tensor(np.asarray(fold, np.uint8), device=self.device)
+        for start in range(0, shots, batch_size):
+            out, dev = self._sample_batch(min(batch_size, shots - start))
             max_dev = torch.maximum(max_dev, dev)
-            row += take
+            to_host.push(out if fold is None else out ^ fold, start)
+        to_host.close()
         self.last_norm_deviation = float(max_dev[0])
-        _check_norm_deviation(max_dev, self.evaluation)
+        _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
 
-    def _sample_batch(self, batch_size: int, dest: np.ndarray, stage=None) -> torch.Tensor:
-        """Sample one batch and write its first ``len(dest)`` shots into ``dest``.
-
-        Stages: noise draw, ladder, bitplane pack, copy to the host, unpack
-        there. ``stage(name)``, if given, is called as each one ends, with
-        name "noise", "ladder", "pack", "d2h" or "unpack" (a profiler's
-        hook). Returns the batch's (1,) max norm deviation, on the device.
-        """
+    def _sample_batch(self, shots: int, stage=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Enqueue one batch's noise draw and ladder: ((shots, num_outputs)
+        uint8 bits, (1,) max norm deviation), both on the device.
+        ``stage(name)``, if given, is called as each ends, with "noise" or
+        "ladder" (a profiler's hook; "d2h" and "host" are
+        :class:`_RowsToHost`'s push and close)."""
         mark = stage or (lambda name: None)
-        f_params = self._device_channels.sample(self._generator, batch_size)
+        f_params = self._device_channels.sample(self._generator, shots)
         mark("noise")
         out, dev = sample_program_with_deviation(self._tables, f_params, self._generator)
         mark("ladder")
-        packed = _pack_bitplanes(out)
-        mark("pack")
-        host = packed.cpu().numpy()
-        mark("d2h")
-        dest[:] = np.unpackbits(host, axis=1, bitorder="little")[:, : len(dest)].T
-        mark("unpack")
-        return dev
+        return out, dev
 
     def _sample_batches_with_postselection(
         self,
@@ -374,77 +453,105 @@ class _CompiledSamplerBase:
         *,
         postselection_mask: np.ndarray,
         fold_detector_reference: bool = False,
-        compute_reference: bool = False,
-    ):
-        """Postselected sampling: (samples, reference or None, dropped).
+        fold_observable_reference: bool = False,
+    ) -> np.ndarray:
+        """Postselected sampling: (shots, num_outputs) bool samples.
 
         Counterpart of tsim_tpu's ``_sample_batches_with_postselection``,
         kept on the device: each chunk of ``batch_size`` shots draws its
         noise, its direct bits and the prefilter over the masked direct
-        detectors there (after the detector reference fold, when asked);
-        boolean indexing compacts the survivors, which are evaluated in
-        batches of ``batch_size`` (the last one shorter). Discarded shots
-        never reach an evaluator: their rows keep the direct detector
-        columns and are false elsewhere. The final reference folds of
-        survivors and discarded rows follow tsim_tpu's.
+        detectors there (after the detector reference fold, when asked).
+        Its rows start as the direct detector columns, false elsewhere; its
+        survivors join a pool, which is evaluated in batches of
+        ``batch_size`` (the last one shorter), and each evaluated survivor's
+        row is scattered into its chunk's rows. Discarded shots never reach
+        an evaluator. A chunk whose survivors are all evaluated goes to the
+        host through :class:`_RowsToHost`; chunks wait on the device until
+        then. The host reads each chunk's survivor count once, since it sets
+        the pool's batches. The reference folds are tsim_tpu's, made on the
+        device: a survivor's row takes the detector reference (when
+        ``fold_detector_reference``) and the observable reference (when
+        ``fold_observable_reference``); a discarded row takes the detector
+        reference on its direct detectors only.
         """
         self._validate_shot_args(shots, batch_size)
         n_out, nd = self._program.num_outputs, self._num_detectors
         if shots == 0:
-            ref0 = np.zeros(n_out, dtype=np.bool_) if compute_reference else None
-            return np.empty((0, n_out), dtype=np.bool_), ref0, np.empty(0, dtype=np.bool_)
+            return np.empty((0, n_out), dtype=np.bool_)
         self._require_components()
         batch_size = self._resolve_batch_size(shots, batch_size)
-        reference = self._reference_sample() if compute_reference else None
+        fold_kept, fold_dropped = np.zeros(n_out, np.bool_), np.zeros(n_out, np.bool_)
+        if fold_detector_reference or fold_observable_reference:
+            reference = self._reference_sample()
+            if fold_detector_reference:
+                fold_kept[:nd] = reference[:nd]
+                fold_dropped[:nd] = reference[:nd] & self._direct_detector_mask
+            if fold_observable_reference:
+                fold_kept[nd:] = reference[nd:]
 
-        post = torch.as_tensor(postselection_mask & self._direct_detector_mask, device=self.device)
-        masked_ref = None
-        if fold_detector_reference and reference is not None:
-            masked_ref = torch.as_tensor(reference[:nd], device=self.device) & post
+        def on_device(a):
+            return torch.as_tensor(np.asarray(a, np.uint8), device=self.device)
 
-        result = np.zeros((shots, n_out), dtype=np.bool_)
-        dropped = np.zeros(shots, dtype=np.bool_)
+        post = on_device(postselection_mask & self._direct_detector_mask).bool()
+        masked_ref = on_device(fold_kept[:nd]).bool() & post
+        fold_kept, fold_dropped = on_device(fold_kept), on_device(fold_dropped[:nd])
+
+        result = np.empty((shots, n_out), dtype=np.bool_)
         max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
-        pool_f: list[torch.Tensor] = []
-        pool_rows: list[torch.Tensor] = []
+        to_host = _RowsToHost(result, self.device, min(batch_size, shots))
+        chunks = collections.deque()  # [first row, rows (want, n_out) uint8, survivors not yet evaluated]
+        pool = collections.deque()  # [noise rows, their rows in their chunk, the chunk], oldest first
         pooled = 0
 
-        def evaluate(f_batch, rows):
-            nonlocal max_dev
-            out, dev = sample_program_with_deviation(self._tables, f_batch, self._generator)
+        def evaluate(n: int) -> None:
+            nonlocal max_dev, pooled
+            parts, got = [], 0
+            while got < n:
+                f, rows, chunk = pool[0]
+                k = min(n - got, f.shape[0])
+                parts.append((f[:k], rows[:k], chunk))
+                if k == f.shape[0]:
+                    pool.popleft()
+                else:
+                    pool[0] = [f[k:], rows[k:], chunk]
+                got += k
+            out, dev = sample_program_with_deviation(
+                self._tables, torch.cat([f for f, _, _ in parts]), self._generator
+            )
+            out = out ^ fold_kept
             max_dev = torch.maximum(max_dev, dev)
-            result[rows.cpu().numpy()] = _to_host(out)
+            at = 0
+            for f, rows, chunk in parts:
+                chunk[1].index_copy_(0, rows, out[at : at + f.shape[0]])
+                chunk[2] -= f.shape[0]
+                at += f.shape[0]
+            pooled -= n
 
         taken = 0
         while taken < shots:
             want = min(batch_size, shots - taken)
             f_params = self._device_channels.sample(self._generator, want)
             direct = self._tables.direct_outputs(f_params)[:, :nd]
-            sel = direct.bool() & post
-            if masked_ref is not None:
-                sel ^= masked_ref
-            keep = ~sel.any(dim=1)
-            result[taken : taken + want, :nd] = _to_host(direct)
-            keep_host = keep.cpu().numpy()
-            dropped[taken : taken + want] = ~keep_host
-            pool_f.append(f_params[keep])
-            pool_rows.append(torch.nonzero(keep).squeeze(1) + taken)
-            pooled += int(keep_host.sum())
+            keep = ~((direct.bool() & post) ^ masked_ref).any(dim=1)
+            rows = torch.zeros((want, n_out), dtype=torch.uint8, device=self.device)
+            rows[:, :nd] = direct ^ fold_dropped
+            survivors = int(keep.sum())  # the chunk's one host read
+            chunk = [taken, rows, survivors]
+            chunks.append(chunk)
+            if survivors:
+                kept = _kept_rows(keep, survivors)
+                pool.append([f_params.index_select(0, kept), kept, chunk])
+            pooled += survivors
             taken += want
             while pooled >= batch_size or (taken == shots and pooled):
-                f_all, rows_all = torch.cat(pool_f), torch.cat(pool_rows)
-                n = min(batch_size, pooled)
-                evaluate(f_all[:n], rows_all[:n])
-                pool_f, pool_rows = [f_all[n:]], [rows_all[n:]]
-                pooled -= n
-
+                evaluate(min(batch_size, pooled))
+            while chunks and chunks[0][2] == 0:
+                first, rows, _ = chunks.popleft()
+                to_host.push(rows, first)
+        to_host.close()
         self.last_norm_deviation = float(max_dev[0])
-        _check_norm_deviation(max_dev, self.evaluation)
-        if fold_detector_reference and reference is not None:
-            det_ref = reference[:nd]
-            result[~dropped, :nd] ^= det_ref
-            result[dropped, :nd] ^= det_ref & self._direct_detector_mask
-        return result, reference, dropped
+        _check_norm_deviation(self.last_norm_deviation, self.evaluation)
+        return result
 
 
 class CompiledMeasurementSampler(_CompiledSamplerBase):
@@ -497,31 +604,30 @@ class CompiledDetectorSampler(_CompiledSamplerBase):
                 "separate_observables=True is mutually exclusive with the "
                 "prepend/append observable layouts"
             )
-        compute_reference = use_detector_reference_sample or use_observable_reference_sample
         prefilter_mask = self._coerce_postselection_mask(postselection_mask)
         nd = self._num_detectors
         if prefilter_mask is None:
             # Every shot is evaluated; the reference folds apply to all of them.
-            samples = self._sample_batches(shots, batch_size)
-            if compute_reference and shots:
+            fold = None
+            if (use_detector_reference_sample or use_observable_reference_sample) and shots:
                 reference = self._reference_sample()
+                fold = np.zeros_like(reference)
                 if use_detector_reference_sample:
-                    samples[:, :nd] ^= reference[:nd]
+                    fold[:nd] = reference[:nd]
                 if use_observable_reference_sample:
-                    samples[:, nd:] ^= reference[nd:]
+                    fold[nd:] = reference[nd:]
+            samples = self._sample_batches(shots, batch_size, fold)
         else:
-            # The detector fold happens inside (it decides which shots the
-            # prefilter discards); discarded shots are never evaluated, so the
-            # observable fold touches the survivors only.
-            samples, reference, dropped = self._sample_batches_with_postselection(
+            # The detector fold decides which shots the prefilter discards;
+            # discarded shots are never evaluated, so the observable fold
+            # touches the survivors only.
+            samples = self._sample_batches_with_postselection(
                 shots,
                 batch_size,
                 postselection_mask=prefilter_mask,
                 fold_detector_reference=use_detector_reference_sample,
-                compute_reference=compute_reference,
+                fold_observable_reference=use_observable_reference_sample,
             )
-            if use_observable_reference_sample:
-                samples[~dropped, nd:] ^= reference[nd:]
         det = samples[:, :nd]
         obs = samples[:, nd:]
         if prepend_observables and append_observables:
@@ -555,6 +661,9 @@ class CompiledStateProbs(_CompiledSamplerBase):
                     "a state-probability program has two rungs (norm, joint) per component, "
                     f"got {len(comp.compiled_scalar_graphs)}"
                 )
+
+    def _options(self) -> dict:
+        return {}
 
     def probability_of(self, state: np.ndarray, *, batch_size: int) -> np.ndarray:
         """P(state | f) for ``batch_size`` noise samples f: (batch_size,) float32."""
