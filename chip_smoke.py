@@ -44,7 +44,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 8. the per-term f32 kernels (K3a ``per_term_wide``, K3b ``per_term_small``)
    and the bit-sliced ones (K1 ``wide``, K2 ``small``, any row) vs the plain
    version on every rung of d3, 1-check
-   and 2-check cultivation and on two seeded rungs over 160 parameters, at
+   and 2-check cultivation, d5 distillation (the rungs phase 20 samples) and
+   on two seeded rungs over 160 parameters, at
    2^20 + 1 rows; K1 must equal K3a, and K2 K3b, bit for bit; within rtol 1e-5 of
    the row's mass (the sum over graphs of |product|: cultivation's graph
    sums cancel to near zero on most rows, where only the mass sets the
@@ -100,11 +101,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
     call; the batch loop's own wait on an earlier batch's copy event is not
     one of them;
 18. checkpointing: the d3 sampler saved after one 2^20-shot batch and
-    loaded; the two give bit-identical next 2^16 shots.
+    loaded; the two give bit-identical next 2^16 shots;
+19. the port's host compile path on the card's host (no JAX there): the
+    circuits of the four committed workloads (d3's detector sampler and
+    state probabilities, 1- and 2-check cultivation) and of d5 distillation
+    built by ``tsim_tpu_torch.models`` and compiled by ``sampler.compile_circuit``,
+    each equal to its committed ``.npz`` leaf for leaf (dtype, shape, value);
+    each compile's time and stages, the g++ build of the native ZX engine,
+    and the planner, which must be the native one throughout (the Python
+    fallback plans otherwise, so "python" or "mixed" fails the run);
+20. d5 distillation, compiled on the host and sampled on the card:
+    ``distillation_d5(p=0.02).compile_detector_sampler(seed=0)`` takes phase
+    19's verified d5 program from the in-process AOT cache, then ``.sample(
+    8 * 2**20, batch_size=2**20, append_observables=True)`` after one warm-up
+    batch, through the pipelined loop: launches of K1 and K2, norm deviation
+    (at most 3e-3), shots/s, and per-output z-scores against the means
+    tsim_tpu sampled (``programs/distillation_d5_p0.02.npz``, 2^18 shots).
 
-Phases 4, 7, 10, 12 and 16 sample through the pipelined batch loop
+Phases 4, 7, 10, 12, 16 and 20 sample through the pipelined batch loop
 (``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
-phases 4, 6, 7, 10 to 13 and 16 runs with the launch counts set to
+phases 4, 6, 7, 10 to 13, 16 and 20 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
 launched fails the run. The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
@@ -931,6 +947,86 @@ def checkpoint_phase(circuit) -> None:
         fail("checkpoint: the restored sampler does not continue the sample stream on the card")
 
 
+def host_compile_phase() -> None:
+    """Phase 19: the port compiles the circuits of the committed programs on
+    this host, each equal to its ``.npz`` leaf for leaf; fails unless the
+    native ZX engine planned them."""
+    from tsim_tpu_torch import models, program_io
+    from tsim_tpu_torch.compile import aot_cache
+    from tsim_tpu_torch.models import exported
+    from tsim_tpu_torch.sampler import compile_circuit
+    from tsim_tpu_torch.zx import native_simplify
+
+    t0 = time.perf_counter()
+    if native_simplify._load() is None:
+        fail("host compile: the native ZX engine did not build or load; the Python planner "
+             "would plan other decompositions than the committed programs'")
+    print(f"host compile: native ZX engine built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    workloads = [
+        ("d3", models.distillation_d3(p=0.05), True, "sequential", exported.D3_PROGRAM),
+        ("d3 state probabilities", models.distillation_d3(p=0.05), False, "joint",
+         exported.D3_STATE_PROBS_PROGRAM),
+        ("cultivation 1-check", models.cultivation_d3(p=0.001, checks=1), True, "sequential",
+         exported.CULTIVATION_CHECKS1_PROGRAM),
+        ("cultivation 2-check", models.cultivation_d3(p=0.001, checks=2), True, "sequential",
+         exported.CULTIVATION_PROGRAM),
+        ("d5", models.distillation_d5(p=0.02), True, "sequential", exported.D5_PROGRAM),
+    ]
+    for label, circuit, sample_detectors, mode, path in workloads:
+        aot_cache.clear_memory()  # a compile of its own, as a new process makes
+        t0 = time.perf_counter()
+        got, stats = compile_circuit(circuit, sample_detectors=sample_detectors, mode=mode)
+        took = time.perf_counter() - t0
+        bad = program_io.leaf_differences(got, program_io.load_npz(path))
+        rungs = [c.num_graphs for comp in got.program.components for c in comp.compiled_scalar_graphs]
+        leaves = len(program_io.flatten(got)[0])
+        print(f"host compile: {label}: {took:.3f} s ({stats}), {len(rungs)} rungs, largest {max(rungs)}, "
+              f"total {sum(rungs)} graphs, {leaves} leaves; equal to {path.name}: {not bad}", flush=True)
+        if stats["planner"] != "native":
+            fail(f"host compile: {label} was not planned by the native engine alone "
+                 f"(planner {stats['planner']!r})")
+        if bad:
+            fail(f"host compile: {label} differs from {path.name} in {bad[:8]}")
+
+
+def d5_path() -> dict:
+    """Phase 20: d5 distillation compiled on the host and sampled on the card."""
+    from tsim_tpu_torch.compile import aot_cache
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+    from tsim_tpu_torch.models import distillation_d5, exported
+
+    reference = exported.distillation_d5(p=0.02).load()
+    circuit = distillation_d5(p=0.02)
+    verified = aot_cache.fetch(aot_cache.cache_key(
+        str(circuit._stim_circ), sample_detectors=True, mode="sequential", strategy="cat5"))
+    t0 = time.perf_counter()
+    sampler = circuit.compile_detector_sampler(seed=0)
+    took = time.perf_counter() - t0
+    if verified is None or sampler._program is not verified.program:
+        fail("d5: the sampler does not sample phase 19's verified program")
+    print(f"d5: sampler built in {took:.3f} s on {sampler.device} from phase 19's verified program "
+          f"(an AOT memory hit: no compile here; phase 19 printed its compile time); {sampler!r}", flush=True)
+    sampler.sample(MAIN_BATCH, batch_size=MAIN_BATCH, append_observables=True)  # warm-up
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(MAIN_SHOTS, batch_size=MAIN_BATCH, append_observables=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.launch_counts)
+    check_launched("d5", launches, ["wide", "small"])
+    n_out = reference.program.num_outputs
+    if out.shape != (MAIN_SHOTS, n_out) or out.dtype != np.bool_:
+        fail(f"d5: expected ({MAIN_SHOTS}, {n_out}) bool samples, got {out.shape} {out.dtype}")
+    dev_norm = sampler.last_norm_deviation
+    print(f"d5: max norm deviation {dev_norm:.3e} (limit {NORM_TOL}); {MAIN_SHOTS} shots in {wall:.3f} s "
+          f"= {MAIN_SHOTS / wall:.0f} shots/s (batch {MAIN_BATCH})", flush=True)
+    if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
+        fail("d5: norm deviation above the f32 tolerance")
+    check_means("d5", out, reference)
+    return launches
+
+
 def ablation_path(circuit, label: str, dev) -> tuple[dict, tuple, float]:
     """Phase 13: the K8 ablation on the rung ``circuit`` at MAIN_BATCH rows.
     Returns (launches, (full ms, plain ms, bound ms, bound by, rung), max abs err)."""
@@ -1037,7 +1133,7 @@ def main() -> None:
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import build
     from tsim_tpu_torch.kernels import sample_eval as kernel
-    from tsim_tpu_torch.models import distillation_d3
+    from tsim_tpu_torch.models.exported import distillation_d3, distillation_d5
 
     # ---- phase 2: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -1125,7 +1221,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 5: exact kernels vs plain exact evaluator ----------------
-    from tsim_tpu_torch.models import cultivation_d3
+    from tsim_tpu_torch.models.exported import cultivation_d3
 
     cultivation = cultivation_d3(p=0.001, checks=2)
     exact_err, exact_timing, as_exact = exact_kernel_phase(
@@ -1148,7 +1244,8 @@ def main() -> None:
     # ---- phase 8: per-term kernels vs plain version ----------------------
     cultivation_checks1 = cultivation_d3(p=0.001, checks=1)
     per_term_err, per_term_timing = per_term_phase(
-        {"d3": exported, "cultivation_checks1": cultivation_checks1.load(), "cultivation": cultivation.load()},
+        {"d3": exported, "cultivation_checks1": cultivation_checks1.load(), "cultivation": cultivation.load(),
+         "d5": distillation_d5(p=0.02).load()},
         dev,
     )
 
@@ -1192,13 +1289,19 @@ def main() -> None:
 
     # ---- phase 16: small batches -----------------------------------------
     f32_paths.append(small_batch_path(circuit))
-    f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
 
     # ---- phase 17: host synchronisations of the batch loop ---------------
     sync_phase(circuit)
 
     # ---- phase 18: checkpointing -----------------------------------------
     checkpoint_phase(circuit)
+
+    # ---- phase 19: the host compile path ---------------------------------
+    host_compile_phase()
+
+    # ---- phase 20: d5 distillation, compiled here and sampled on the card -
+    f32_paths.append(d5_path())
+    f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

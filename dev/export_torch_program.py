@@ -1,6 +1,6 @@
 """Export programs compiled by tsim_tpu, with reference data, for tsim_tpu_torch.
 
-Three programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
+Five programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
 
 * ``d3``: ``distillation_d3(p=0.05).compile_detector_sampler(seed=0)``,
   with the per-output means of tsim_tpu's own sampler (detectors then
@@ -19,7 +19,12 @@ Three programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
   means (detectors then observables) and the reference sample row;
 * ``cultivation_checks1``: ``cultivation_d3(p=0.001, checks=1)
   .compile_detector_sampler(seed=0)``, with the per-output means of
-  tsim_tpu's own sampler at 2^20 shots, as the physics reference.
+  tsim_tpu's own sampler at 2^20 shots, as the physics reference;
+* ``d5``: ``distillation_d5(p=0.02).compile_detector_sampler(seed=0)``,
+  with the per-output means of tsim_tpu's own sampler at 2^18 shots.
+
+The port compiles these circuits itself; each file is the reference its own
+compile must equal leaf for leaf, on a machine without JAX too.
 
 Each program is converted with ``tsim_tpu_torch.program_io.from_reference``.
 Needs JAX; runs on the CPU, where tsim_tpu evaluates exactly (the two
@@ -59,6 +64,13 @@ def compile_d3_state_probs():
     from tsim_tpu.models.distillation import distillation_d3
 
     return distillation_d3(p=0.05).compile_state_probs(seed=SEED)
+
+
+def compile_d5():
+    """The tsim_tpu detector sampler of d5 distillation at p = 0.02, seed 0."""
+    from tsim_tpu.models.distillation import distillation_d5
+
+    return distillation_d5(p=0.02).compile_detector_sampler(seed=SEED)
 
 
 def compile_cultivation(checks: int = 2):
@@ -237,17 +249,42 @@ def _cultivation_checks1(args):
     )
 
 
+def _d5(args):
+    sampler = compile_d5()
+    exported = export_sampler(sampler)
+    t0 = time.perf_counter()
+    samples = sampler.sample(REFERENCE_SHOTS, batch_size=REFERENCE_BATCH, append_observables=True)
+    print(f"sampled {REFERENCE_SHOTS} shots in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return dataclasses.replace(
+        exported,
+        reference_means=samples.mean(axis=0),
+        meta={
+            "circuit": "tsim_tpu.models.distillation.distillation_d5(p=0.02)",
+            "compile": f"compile_detector_sampler(seed={SEED})",
+            "reference": "sample(shots, batch_size=65536, append_observables=True), "
+            "tsim_tpu on the CPU (exact evaluation)",
+            "reference_shots": REFERENCE_SHOTS,
+        },
+    )
+
+
 PROGRAMS = {
     "d3": _d3,
     "d3_state_probs": _d3_state_probs,
     "cultivation": _cultivation,
     "cultivation_checks1": _cultivation_checks1,
+    "d5": _d5,
 }
 
 
 def main() -> None:
-    from tsim_tpu_torch.models.cultivation import CULTIVATION_CHECKS1_PROGRAM, CULTIVATION_PROGRAM
-    from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
+    from tsim_tpu_torch.models.exported import (
+        CULTIVATION_CHECKS1_PROGRAM,
+        CULTIVATION_PROGRAM,
+        D3_PROGRAM,
+        D3_STATE_PROBS_PROGRAM,
+        D5_PROGRAM,
+    )
     from tsim_tpu_torch.program_io import save_npz
 
     paths = {
@@ -255,6 +292,7 @@ def main() -> None:
         "d3_state_probs": D3_STATE_PROBS_PROGRAM,
         "cultivation": CULTIVATION_PROGRAM,
         "cultivation_checks1": CULTIVATION_CHECKS1_PROGRAM,
+        "d5": D5_PROGRAM,
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--program", choices=[*PROGRAMS, "all"], default="all")

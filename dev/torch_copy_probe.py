@@ -112,7 +112,7 @@ def sampling(batches: int, batch: int) -> None:
     """Both ways inside d3 distillation's f32 sampling, in turns."""
     import torch
 
-    from tsim_tpu_torch.models import distillation_d3
+    from tsim_tpu_torch.models.exported import distillation_d3
 
     shots = batches * batch
     circuit = distillation_d3(p=0.05)

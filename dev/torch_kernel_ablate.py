@@ -58,7 +58,7 @@ SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock, longer than the qu
 
 def load_rung(program: str, rung: int):
     """Rung ``rung`` of the first component of a committed program."""
-    from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+    from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 
     exported = {
         "cultivation": lambda: cultivation_d3(p=0.001, checks=2).load(),

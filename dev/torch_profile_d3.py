@@ -97,7 +97,7 @@ def stage_split(sampler, B: int, n: int) -> None:
 def main() -> None:
     import torch
 
-    from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+    from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=1 << 20)

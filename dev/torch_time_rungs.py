@@ -72,7 +72,7 @@ def measure(reps: int) -> dict:
     from tsim_tpu_torch.compile.exact_tables import ExactTables
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import exact_eval, sample_eval
-    from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+    from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 
     d3 = distillation_d3(p=0.05)
     programs = {

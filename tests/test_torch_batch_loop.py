@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tsim_tpu_torch import sampler as port_sampler
-from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 
 PROGRAMS = {"d3": distillation_d3(p=0.05), "cultivation1": cultivation_d3(p=0.001, checks=1)}
 

@@ -48,7 +48,7 @@ from tsim_tpu_torch.compile.sample_eval import PROBE_ROWS, synthetic_rung
 from tsim_tpu_torch.compile.sample_tables import SampleTables, unpack_words
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.kernels import sample_eval as kernel
-from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 from tsim_tpu_torch.program_io import rung_from_reference
 
 REPO = Path(__file__).resolve().parents[1]

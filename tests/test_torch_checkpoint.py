@@ -14,7 +14,7 @@ import torch
 import tsim_tpu
 from dev.export_torch_program import export_sampler
 from tsim_tpu_torch import program_io
-from tsim_tpu_torch.models import distillation_d3
+from tsim_tpu_torch.models.exported import distillation_d3
 from tsim_tpu_torch.sampler import CompiledDetectorSampler, CompiledMeasurementSampler, CompiledStateProbs
 
 TEXT = """

@@ -39,7 +39,7 @@ from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables, exact_table_layout
 from tsim_tpu_torch.compile.sample_eval import synthetic_rung
 from tsim_tpu_torch.kernels import exact_eval as kernel
-from tsim_tpu_torch.models import distillation_d3
+from tsim_tpu_torch.models.exported import distillation_d3
 from tsim_tpu_torch.program_io import rung_from_reference
 
 RTOL64, RTOL32 = 1e-12, 1e-5

@@ -37,7 +37,7 @@ from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile.sample_eval import synthetic_rung
 from tsim_tpu_torch.core.exact_scalar import ExactScalarArray, exact_magnitude, exp2_int
 from tsim_tpu_torch.kernels import exact_eval as kernel
-from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 from tsim_tpu_torch.ops.gf2 import matmul_gf2
 from tsim_tpu_torch.program_io import rung_from_reference
 

@@ -28,8 +28,7 @@ from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import build
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.kernels import sample_eval as kernel
-from tsim_tpu_torch.models.cultivation import cultivation_d3
-from tsim_tpu_torch.models.distillation import distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-8  # relative to the row's magnitude; f32 summation order differs

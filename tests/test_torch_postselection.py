@@ -22,7 +22,7 @@ import torch
 import tsim_tpu
 from dev.export_torch_program import export_sampler
 from tsim_tpu_torch import sampler as port_sampler
-from tsim_tpu_torch.models import cultivation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3
 
 # One direct detector (rate 0.3), one quantum (T-gate) detector + observable.
 MIXED = """

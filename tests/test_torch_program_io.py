@@ -27,8 +27,12 @@ from dev.export_torch_program import (
     export_sampler,
 )
 from tsim_tpu_torch import program_io
-from tsim_tpu_torch.models.cultivation import CULTIVATION_CHECKS1_PROGRAM, CULTIVATION_PROGRAM
-from tsim_tpu_torch.models.distillation import D3_PROGRAM, D3_STATE_PROBS_PROGRAM
+from tsim_tpu_torch.models.exported import (
+    CULTIVATION_CHECKS1_PROGRAM,
+    CULTIVATION_PROGRAM,
+    D3_PROGRAM,
+    D3_STATE_PROBS_PROGRAM,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -181,7 +185,7 @@ def test_port_runs_without_jax():
         """
         import sys
         sys.modules["jax"] = None  # any import of jax now raises
-        from tsim_tpu_torch.models import distillation_d3
+        from tsim_tpu_torch.models.exported import distillation_d3
         out = distillation_d3(p=0.05).compile_detector_sampler(seed=0, device="cpu").sample(
             1024, batch_size=512, append_observables=True)
         assert out.shape == (1024, 20), out.shape
@@ -189,7 +193,7 @@ def test_port_runs_without_jax():
         state = d3.load_state_probs().replay["states"][1]
         p = d3.compile_state_probs(seed=0, device="cpu").probability_of(state, batch_size=64)
         assert p.shape == (64,), p.shape
-        from tsim_tpu_torch.models import cultivation_d3
+        from tsim_tpu_torch.models.exported import cultivation_d3
         out = cultivation_d3(p=0.001, checks=2).compile_detector_sampler(
             seed=0, device="cpu", evaluation="exact").sample(64, batch_size=64)
         assert out.shape == (64, 11), out.shape

@@ -18,7 +18,7 @@ import tsim_tpu
 from dev.export_torch_program import compile_cultivation, compile_d3, export_sampler, jax_replay
 from tsim_tpu_torch import sampler as port_sampler
 from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample
-from tsim_tpu_torch.models import cultivation_d3, distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
 from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
 from tsim_tpu_torch.ops.gf2 import static_take_columns
 

@@ -26,7 +26,7 @@ from dev.export_torch_program import compile_d3_state_probs, export_sampler
 from tests.helpers.gen import gen_circuit_text
 from tests.integration.test_state_probs import CLIFFORD_T, WITH_ROTATIONS
 from tsim_tpu_torch.kernels import exact_eval as kernel
-from tsim_tpu_torch.models import distillation_d3
+from tsim_tpu_torch.models.exported import distillation_d3
 from tsim_tpu_torch.sampler import CompiledStateProbs
 
 RTOL = 5e-6

@@ -1,23 +1,30 @@
 """tsim_tpu_torch: the PyTorch / CUDA port of tsim_tpu.
 
-It samples compiled programs on a torch device and computes their state
-probabilities; on an NVIDIA Hopper card the f32 sampling evaluator and the
-exact evaluator run as hand-written CUDA kernels. The port has no circuit
-compiler yet: programs come as data (``program_io``), exported from
-``tsim_tpu``. It imports torch and numpy, never JAX.
+A :class:`Circuit` (Stim dialect plus tsim's non-Clifford gates) compiles on
+the host with the port's own copy of ``tsim_tpu``'s compiler: the ZX
+engine, with its C++ planner built by ``g++`` at first use, the stabilizer
+decomposition and the term families, written as ``program_io``'s numpy
+dataclasses. The samplers and state probabilities run on a torch device;
+on an NVIDIA Hopper card the f32 sampling evaluator and the exact evaluator
+run as hand-written CUDA kernels. Programs can also come as data
+(``program_io``, ``models/exported.py``). It imports torch and numpy, never
+JAX.
 """
 
-from .models import cultivation_d3, distillation_d3
+from .circuit import Circuit
+from .models import cultivation_d3, distillation_d3, distillation_d5
 from .program_io import ExportedProgram, load_npz, save_npz
 from .sampler import CompiledDetectorSampler, CompiledMeasurementSampler, CompiledStateProbs
 
 __all__ = [
+    "Circuit",
     "CompiledDetectorSampler",
     "CompiledMeasurementSampler",
     "CompiledStateProbs",
     "ExportedProgram",
     "cultivation_d3",
     "distillation_d3",
+    "distillation_d5",
     "load_npz",
     "save_npz",
 ]

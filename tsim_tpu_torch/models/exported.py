@@ -1,8 +1,12 @@
 """Circuits whose compiled programs are committed as data (``programs/*.npz``).
 
-The port has no host compiler of its own yet: each workload's programs
-are compiled by ``tsim_tpu`` and exported with
-``python dev/export_torch_program.py``.
+Each workload's programs were compiled by ``tsim_tpu`` and exported, with
+``tsim_tpu``'s reference means and replays, by
+``python dev/export_torch_program.py``. The tests and ``chip_smoke.py`` hold
+the port against them where JAX is absent: the port's own compile of each
+circuit must equal its file leaf for leaf, and its samples must agree with
+the means and replays. The builders in ``models/`` compile any argument;
+these loaders cover only the committed ones.
 """
 
 from __future__ import annotations
@@ -13,6 +17,13 @@ from ..program_io import ExportedProgram, load_npz
 from ..sampler import CompiledDetectorSampler, CompiledStateProbs
 
 PROGRAM_DIR = Path(__file__).resolve().parents[1] / "programs"
+
+D3_PROGRAM = PROGRAM_DIR / "distillation_d3_p0.05.npz"
+D3_STATE_PROBS_PROGRAM = PROGRAM_DIR / "distillation_d3_p0.05_state_probs.npz"
+D5_PROGRAM = PROGRAM_DIR / "distillation_d5_p0.02.npz"
+CULTIVATION_PROGRAM = PROGRAM_DIR / "cultivation_d3_p0.001_checks2.npz"
+CULTIVATION_CHECKS1_PROGRAM = PROGRAM_DIR / "cultivation_d3_p0.001_checks1.npz"
+_CULTIVATION_PROGRAMS = {1: CULTIVATION_CHECKS1_PROGRAM, 2: CULTIVATION_PROGRAM}
 
 
 class ExportedCircuit:
@@ -43,3 +54,36 @@ class ExportedCircuit:
 
     def compile_state_probs(self, *, seed: int | None = None, device=None) -> CompiledStateProbs:
         return CompiledStateProbs(self.load_state_probs(), seed=seed, device=device)
+
+
+def distillation_d3(p: float = 0.05) -> ExportedCircuit:
+    """The committed programs of ``models.distillation_d3(p=0.05)``: its
+    detector sampler and its state probabilities."""
+    if p != 0.05:
+        raise NotImplementedError(
+            f"exported distillation_d3(p={p}): only p=0.05 is committed; compile other "
+            "error rates with tsim_tpu_torch.models.distillation_d3(p)"
+        )
+    return ExportedCircuit(D3_PROGRAM, D3_STATE_PROBS_PROGRAM)
+
+
+def distillation_d5(p: float = 0.02) -> ExportedCircuit:
+    """The committed detector-sampler program of ``models.distillation_d5(p=0.02)``."""
+    if p != 0.02:
+        raise NotImplementedError(
+            f"exported distillation_d5(p={p}): only p=0.02 is committed; compile other "
+            "error rates with tsim_tpu_torch.models.distillation_d5(p)"
+        )
+    return ExportedCircuit(D5_PROGRAM)
+
+
+def cultivation_d3(p: float = 0.001, checks: int = 1) -> ExportedCircuit:
+    """The committed detector-sampler programs of ``models.cultivation_d3(p=0.001,
+    checks=c)`` for c = 1 and 2."""
+    if p != 0.001 or checks not in _CULTIVATION_PROGRAMS:
+        raise NotImplementedError(
+            f"exported cultivation_d3(p={p}, checks={checks}): only p=0.001 with checks 1 "
+            "or 2 is committed; compile other arguments with "
+            "tsim_tpu_torch.models.cultivation_d3(p, checks=checks)"
+        )
+    return ExportedCircuit(_CULTIVATION_PROGRAMS[checks])

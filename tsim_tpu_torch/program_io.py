@@ -269,6 +269,23 @@ def flatten(exported: ExportedProgram) -> tuple[dict, dict]:
     return arrays, header
 
 
+def leaf_differences(a: ExportedProgram, b: ExportedProgram) -> list[str]:
+    """The names (``flatten``'s keys) of the leaves and header entries in
+    which the programs, noise models and detector counts of ``a`` and ``b``
+    differ: a leaf differs in dtype, shape or any value. Reference data,
+    replays and meta are not compared."""
+    (aa, ah), (ba, bh) = (
+        flatten(ExportedProgram(program=e.program, noise=e.noise, num_detectors=e.num_detectors))
+        for e in (a, b)
+    )
+    names = sorted(set(aa) ^ set(ba))
+    names += [
+        k for k in sorted(set(aa) & set(ba))
+        if aa[k].dtype != ba[k].dtype or aa[k].shape != ba[k].shape or not np.array_equal(aa[k], ba[k])
+    ]
+    return names + [f"header.{k}" for k in sorted(ah) if ah[k] != bh.get(k)]
+
+
 def save_npz(path, exported: ExportedProgram) -> None:
     """Write ``exported`` as one ``.npz`` of arrays plus a JSON header."""
     write_npz(path, *flatten(exported))

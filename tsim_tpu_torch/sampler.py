@@ -1,7 +1,10 @@
 """Compiled samplers and state probabilities on a torch device.
 
-Counterpart of ``tsim_tpu/sampler.py`` for programs that come as data
-(``program_io``). Each batch draws noise on the device, copies the direct
+Counterpart of ``tsim_tpu/sampler.py``. A sampler is built from a
+:class:`~tsim_tpu_torch.circuit.Circuit`, which is compiled on the host
+first (:func:`compile_circuit`: ``prepare_graph``, ``compile_program`` and
+the host ``ChannelSampler``, through the AOT cache), or from a program that
+comes as data (``program_io.ExportedProgram``). Each batch draws noise on the device, copies the direct
 outputs and runs every component's plugged-circuit ladder (one evaluation
 per rung, f32 or exact, chain-rule Bernoulli draws). The batches form a
 pipeline: batch k's (shots, outputs) bits are copied to pinned host memory
@@ -16,7 +19,9 @@ from __future__ import annotations
 
 import collections
 import os
+import time
 import warnings
+from dataclasses import fields
 from math import ceil
 
 import numpy as np
@@ -29,9 +34,86 @@ from .compile.sample_eval import (
     norm_deviation_tolerance,
     rung_tables,
 )
+from .compile import aot_cache
+from .compile.pipeline import compile_program
+from .core.graph_prep import prepare_graph
+from .noise.channels import ChannelSampler
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
-from .program_io import ExportedProgram, flatten, read_npz, unflatten, write_npz
+from .program_io import (
+    ExportedProgram,
+    flatten,
+    noise_from_reference,
+    read_npz,
+    unflatten,
+    write_npz,
+)
+from .zx import native_simplify
+
+
+def compile_circuit(
+    circuit, *, sample_detectors: bool, mode: str, strategy: str = "cat5"
+) -> tuple[ExportedProgram, dict]:
+    """Compile ``circuit`` on the host, as ``tsim_tpu/sampler.py:615-690`` does:
+    (the program with its noise model, ``compile_stats``).
+
+    The AOT cache is looked up first; on a miss ``prepare_graph`` and
+    ``compile_program`` run and their result is stored. The host
+    ``ChannelSampler`` simplifies the channels into the
+    ``program_io.NoiseModel`` the device draw samples (its own draws are
+    not used, so its seed is fixed). The stats
+    hold each stage's seconds and the ZX engine that planned the
+    decompositions: "native" (the C++ engine), "python" (its fallback,
+    where ``g++`` is missing or ``TSIM_TPU_NATIVE_ZX=0``) or "mixed" (the
+    engine was loaded, but some of its calls handed their graph back to the
+    Python engine). A mixed compile is not stored in the AOT cache, whose
+    key names the engine, so a cache hit is never mixed.
+    """
+    aot_key = aot_cache.cache_key(
+        str(circuit._stim_circ), sample_detectors=sample_detectors, mode=mode, strategy=strategy
+    )
+    cached = aot_cache.fetch(aot_key)
+    t0 = time.perf_counter()
+    if cached is not None:
+        program = cached.program
+        channel_probs = cached.channel_probs
+        error_transform = cached.error_transform
+        num_detectors = cached.num_detectors
+        t1 = t2 = t0
+        mixed = False
+    else:
+        fallbacks = native_simplify.fallbacks
+        prepared = prepare_graph(circuit, sample_detectors=sample_detectors)
+        t1 = time.perf_counter()
+        program = compile_program(prepared, mode=mode, strategy=strategy)
+        t2 = time.perf_counter()
+        channel_probs = prepared.channel_probs
+        error_transform = prepared.error_transform
+        num_detectors = prepared.num_detectors
+        mixed = native_simplify.fallbacks > fallbacks
+        if not mixed:
+            aot_cache.store(
+                aot_key,
+                aot_cache.CompiledEntry(
+                    program=program,
+                    channel_probs=channel_probs,
+                    error_transform=error_transform,
+                    num_detectors=num_detectors,
+                ),
+            )
+    channel_sampler = ChannelSampler(
+        channel_probs=channel_probs, error_transform=error_transform, seed=0
+    )
+    stats = {
+        "prepare_s": round(t1 - t0, 3),
+        "decompose_s": round(t2 - t1, 3),
+        "channels_s": round(time.perf_counter() - t2, 3),
+        "planner": "python" if native_simplify._load() is None else "mixed" if mixed else "native",
+    }
+    exported = ExportedProgram(
+        program=program, noise=noise_from_reference(channel_sampler), num_detectors=num_detectors
+    )
+    return exported, stats
 
 
 def _long(a) -> torch.Tensor:
@@ -283,9 +365,12 @@ def _resolve_device(device) -> torch.device:
 
 
 class _CompiledSamplerBase:
-    """Shared sampling machinery over an :class:`~tsim_tpu_torch.program_io.ExportedProgram`.
+    """Shared sampling machinery over a compiled program.
 
-    ``evaluation`` selects how rungs are evaluated: "f32" (the default;
+    ``source`` is a :class:`~tsim_tpu_torch.circuit.Circuit`, compiled here
+    with ``strategy`` (``compile_stats`` then holds the compile's stages and
+    planner), or an :class:`~tsim_tpu_torch.program_io.ExportedProgram`
+    (``compile_stats`` None). ``evaluation`` selects how rungs are evaluated: "f32" (the default;
     rungs that fail ``sample_eligible`` are still exact) or "exact" (every
     rung; the norm monitor's band narrows from 3e-3 to 1e-5). ``per_term``
     True runs every f32 rung through the per-term kernels (the slower
@@ -293,14 +378,24 @@ class _CompiledSamplerBase:
     fit; None follows ``TSIM_TPU_SAMPLE_TPACK`` as tsim_tpu does.
     """
 
+    _sample_detectors = False
+    _mode = "sequential"
+
     def __init__(
-        self, exported, *, seed: int | None = None, device=None, evaluation: str = "f32",
-        per_term: bool | None = None,
+        self, source, *, seed: int | None = None, device=None, evaluation: str = "f32",
+        per_term: bool | None = None, strategy: str = "cat5",
     ):
         self.evaluation = check_evaluation(evaluation)
         self.device = _resolve_device(device)
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**30))
+        if isinstance(source, ExportedProgram):
+            exported, self.compile_stats, self.circuit = source, None, None
+        else:
+            exported, self.compile_stats = compile_circuit(
+                source, sample_detectors=self._sample_detectors, mode=self._mode, strategy=strategy
+            )
+            self.circuit = source
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._per_term = per_term
@@ -315,6 +410,46 @@ class _CompiledSamplerBase:
         # Largest normalization deviation of the last sample() call (the
         # monitor warns above norm_deviation_tolerance()).
         self.last_norm_deviation: float | None = None
+
+    def __repr__(self) -> str:
+        """tsim_tpu's dashboard: direct outputs, graphs, error channel bits,
+        the largest component's outputs, parameters, the four families' term
+        counts (A node phases, B half-pi phases, C pi products, D phase pairs)
+        and the tables' bytes."""
+        n_direct = len(self._program.direct_f_indices)
+        c_graphs, c_params = [], []
+        a = b = c = d = 0
+        num_outputs = []
+        total_bytes = 0
+        for comp in self._program.components:
+            for circ in comp.compiled_scalar_graphs:
+                num_outputs.append(len(comp.output_indices))
+                c_graphs.append(circ.num_graphs)
+                c_params.append(circ.n_params)
+                a += circ.node_phases.phases.size
+                b += circ.halfpi_phases.coeffs.size
+                c += circ.pi_products.psi_const.size
+                d += circ.phase_pairs.alpha.size + circ.phase_pairs.beta.size
+                for part in (circ.node_phases, circ.halfpi_phases, circ.pi_products,
+                             circ.phase_pairs, circ.prefactor):
+                    leaves = (getattr(part, f.name) for f in fields(part))
+                    total_bytes += sum(v.nbytes for v in leaves if isinstance(v, np.ndarray))
+        error_bits = sum(len(ch.unique_col_ids) for ch in self._noise.channels)
+
+        def fmt(n):
+            if n < 1024:
+                return f"{n} B"
+            if n < 1024**2:
+                return f"{n / 1024:.1f} kB"
+            return f"{n / 1024**2:.1f} MB"
+
+        return (
+            f"{type(self).__name__}({n_direct} direct, {int(np.sum(c_graphs))} graphs, "
+            f"{error_bits} error channel bits, "
+            f"{max(num_outputs) if num_outputs else 0} outputs for largest cc, "
+            f"≤ {max(c_params) if c_params else 0} parameters, {a} A terms, "
+            f"{b} B terms, {c} C terms, {d} D terms, {fmt(total_bytes)})"
+        )
 
     # ------------------------------------------------------- checkpointing
     def _options(self) -> dict:
@@ -555,7 +690,8 @@ class _CompiledSamplerBase:
 
 
 class CompiledMeasurementSampler(_CompiledSamplerBase):
-    """Samples measurement outcomes of a measurement program."""
+    """Samples measurement outcomes of a measurement program (a circuit
+    compiles without detectors, sequential ladder)."""
 
     def sample(self, shots: int, *, batch_size: int | None = None) -> np.ndarray:
         return self._sample_batches(shots, batch_size)
@@ -568,7 +704,10 @@ def _maybe_bit_pack(array: np.ndarray, *, bit_packed: bool) -> np.ndarray:
 
 
 class CompiledDetectorSampler(_CompiledSamplerBase):
-    """Samples detector and observable outcomes of a detector program."""
+    """Samples detector and observable outcomes of a detector program (a
+    circuit compiles with its detectors, sequential ladder)."""
+
+    _sample_detectors = True
 
     def _coerce_postselection_mask(self, mask) -> np.ndarray | None:
         """Validate a postselection mask; None where the prefilter has nothing
@@ -650,12 +789,19 @@ class CompiledStateProbs(_CompiledSamplerBase):
     Counterpart of ``tsim_tpu.sampler.CompiledStateProbs``. Each component
     of a joint-mode program has two rungs, its norm and its joint circuit;
     the noise comes from the device channel sampler on this object's
-    generator.
+    generator. A circuit compiles in joint mode, with its detectors as
+    outputs where ``sample_detectors``.
     """
 
-    def __init__(self, exported, *, seed: int | None = None, device=None):
-        super().__init__(exported, seed=seed, device=device, evaluation="exact")
-        for comp in exported.program.components:
+    _mode = "joint"
+
+    def __init__(
+        self, source, *, sample_detectors: bool = False, strategy: str = "cat5",
+        seed: int | None = None, device=None,
+    ):
+        self._sample_detectors = sample_detectors
+        super().__init__(source, seed=seed, device=device, evaluation="exact", strategy=strategy)
+        for comp in self._program.components:
             if len(comp.compiled_scalar_graphs) != 2:
                 raise ValueError(
                     "a state-probability program has two rungs (norm, joint) per component, "
