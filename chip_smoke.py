@@ -116,13 +116,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
     8 * 2**20, batch_size=2**20, append_observables=True)`` after one warm-up
     batch, through the pipelined loop: launches of K1 and K2, norm deviation
     (at most 3e-3), shots/s, and per-output z-scores against the means
-    tsim_tpu sampled (``programs/distillation_d5_p0.02.npz``, 2^18 shots).
+    tsim_tpu sampled (``programs/distillation_d5_p0.02.npz``, 2^18 shots);
+21. the d7 surface-code memory of ``bench_suite.py``'s panel (p = 0.001),
+    compiled on the host (equal to ``programs/surface_code_d7_p0.001.npz``
+    leaf for leaf) and ``.compile_detector_sampler(seed=0)`` on the card: a
+    fully-direct program, drawn on the host by the C++ Pauli-frame engine
+    (``direct_route`` must read ``native_frame``, and no kernel may launch);
+    shots/s of one ``sample(4 * 2**20, separate_observables=True)`` after a
+    warm-up call of the same size; the DEM's time and its text's sha256,
+    which must equal tsim_tpu's; every detector and observable mean within 5
+    sigma of its exact marginal from the DEM, and within 4 * sqrt(2) pooled
+    sigma of tsim_tpu's means; then d5 through both routes (``device="cpu"``
+    host channels, and the card's native frame engine), 2^20 shots each,
+    within 4 * sqrt(2) pooled sigma of each other;
+22. m2d of one native run's measurement records (d7, 2^16 shots) equal to
+    that run's detector and observable rows bit for bit; the card's exact
+    state probabilities (``compile_state_probs(seed=0).probability_of``) of
+    a fixed five-qubit circuit with T, R_Z and U3 gates on each of its 32
+    outcomes, within 1e-5 of the port's statevector oracle (``VecSampler``),
+    and the exact kernels that launched.
 
 Phases 4, 7, 10, 12, 16 and 20 sample through the pipelined batch loop
 (``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
-phases 4, 6, 7, 10 to 13, 16 and 20 runs with the launch counts set to
+phases 4, 6, 7, 10 to 13, 16, 20, 21 and 22 runs with the launch counts set to
 0 just before it and read just after; a kernel of the path that was not
-launched fails the run. The line before the last is a JSON summary of the
+launched fails the run (in phase 21, any kernel launched does). The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
 ``f32_bound``, ``exact_bound`` and ``approx_bound``; a kernel faster than its
 bound fails the run); the last line is ``{"ok": true,
@@ -133,6 +151,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -142,6 +161,7 @@ import numpy as np
 import torch
 
 from dev.torch_kernel_ablate import device_ms, state_prob_path_rows, time_ms
+from dev.torch_surface_scaling import host_cpu
 
 RTOL, ATOL = 1e-5, 1e-8
 NORM_TOL = 3e-3
@@ -334,18 +354,18 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def check_z(label: str, means, n: int, ref, n_ref: int) -> None:
-    """z-scores of means over ``n`` shots against tsim_tpu's over ``n_ref``,
-    with the pooled sigma; fails beyond 4 * sqrt(2)."""
+def check_z(label: str, means, n: int, ref, n_ref: int, ref_label: str = "tsim_tpu") -> None:
+    """z-scores of means over ``n`` shots against ``ref_label``'s (tsim_tpu's)
+    over ``n_ref``, with the pooled sigma; fails beyond 4 * sqrt(2)."""
     means, ref = np.atleast_1d(np.asarray(means, np.float64)), np.atleast_1d(np.asarray(ref, np.float64))
     pooled = (means * n + ref * n_ref) / (n + n_ref)
     sigma = np.sqrt(np.maximum(pooled * (1 - pooled), 1e-12) * (1 / n + 1 / n_ref))
     z = np.abs(means - ref) / sigma
     print(f"{label}: means  " + " ".join(f"{m:.4f}" for m in means))
-    print(f"{label}: tsim_tpu " + " ".join(f"{m:.4f}" for m in ref))
+    print(f"{label}: {ref_label} " + " ".join(f"{m:.4f}" for m in ref))
     print(f"{label}: z      " + " ".join(f"{v:.2f}" for v in z) + f" (max {z.max():.2f}, bound {Z_BOUND:.2f})")
     if not (z < Z_BOUND).all():
-        fail(f"{label}: a mean disagrees with tsim_tpu's beyond 4 * sqrt(2) sigma")
+        fail(f"{label}: a mean disagrees with {ref_label}'s beyond 4 * sqrt(2) sigma")
 
 
 def check_means(label: str, out: np.ndarray, exported) -> None:
@@ -1027,6 +1047,195 @@ def d5_path() -> dict:
     return launches
 
 
+SURFACE_P = 1e-3
+SURFACE_SHOTS = 4 * MAIN_BATCH
+SURFACE_Z_BOUND = 5.0  # phase 21: means against the DEM's exact marginals
+ROUTE_SHOTS = MAIN_BATCH  # phase 21: d5 through each route
+M2D_SHOTS = 1 << 16
+STATE_PROBS_TOL = 1e-5
+# Phase 22: a fixed non-Clifford circuit of five qubits (T, R_Z, U3).
+ORACLE_CIRCUIT = """
+R 0 1 2 3 4
+H 0 1 2 3 4
+T 0
+CNOT 0 1
+R_Z(0.3) 1
+U3(0.34, 0.21, 0.46) 2
+CZ 1 2
+T_DAG 3
+CNOT 3 4
+R_Z(0.7) 4
+H 0 2
+T 1
+CNOT 2 3
+U3(0.1, 0.5, 0.25) 0
+M 0 1 2 3 4
+"""
+
+
+def surface_circuit(d: int):
+    """bench_suite.py's d7 panel's noise at distance ``d``, d rounds."""
+    from tsim_tpu_torch.models import rotated_surface_code_memory_z
+
+    return rotated_surface_code_memory_z(
+        d, d, after_clifford_depolarization=SURFACE_P, before_measure_flip_probability=SURFACE_P,
+        after_reset_flip_probability=SURFACE_P,
+    )
+
+
+def dem_marginals(dem) -> np.ndarray:
+    """Each detector's and observable's flip probability from the DEM's
+    independent mechanisms: (1 - prod(1 - 2 p_k)) / 2 over those that touch it."""
+    n_det = dem.num_detectors
+    prod = np.ones(n_det + dem.num_observables)
+    for ins in dem:
+        if ins.type == "error":
+            for t in ins.targets:
+                if t.kind in ("D", "L"):
+                    prod[t.val + (0 if t.kind == "D" else n_det)] *= 1 - 2 * ins.args[0]
+    return (1 - prod) / 2
+
+
+def all_launch_counts() -> dict:
+    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+
+    return {**sample_eval.launch_counts, **exact_eval.launch_counts}
+
+
+def reset_all_launch_counts() -> None:
+    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+
+    sample_eval.reset_launch_counts()
+    exact_eval.reset_launch_counts()
+
+
+def surface_code_phase() -> None:
+    """Phase 21: the d7 surface-code memory, compiled on the host and sampled
+    through the native frame engine, checked against its DEM."""
+    import hashlib
+
+    from tsim_tpu_torch import program_io
+    from tsim_tpu_torch.compile import aot_cache
+    from tsim_tpu_torch.models.exported import SURFACE_D7_PROGRAM
+
+    reference = program_io.load_npz(SURFACE_D7_PROGRAM)
+    circuit = surface_circuit(7)
+    aot_cache.clear_memory()  # a compile of its own
+    t0 = time.perf_counter()
+    sampler = circuit.compile_detector_sampler(seed=0)
+    took = time.perf_counter() - t0
+    compiled = program_io.ExportedProgram(program=sampler._program, noise=sampler._noise,
+                                          num_detectors=sampler._num_detectors)
+    bad = program_io.leaf_differences(compiled, reference)
+    print(f"surface d7: compiled in {took:.3f} s ({sampler.compile_stats}) on {sampler.device}; "
+          f"equal to {SURFACE_D7_PROGRAM.name}: {not bad}; route {sampler.direct_route}; {sampler!r}", flush=True)
+    if bad:
+        fail(f"surface d7: the compiled program differs from {SURFACE_D7_PROGRAM.name} in {bad[:8]}")
+    if sampler.direct_route != "native_frame" or sampler.compile_stats["planner"] != "native":
+        fail(f"surface d7: route {sampler.direct_route!r}, planner {sampler.compile_stats['planner']!r}; "
+             "expected the native frame engine and the native planner")
+    t0 = time.perf_counter()
+    sampler._native_frame_sampler()
+    print(f"surface d7: frame engine (g++ build of frame_kernels.cpp and op stream) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    sampler.sample(SURFACE_SHOTS, separate_observables=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    det, obs = sampler.sample(SURFACE_SHOTS, separate_observables=True)
+    wall = time.perf_counter() - t0
+    launches = all_launch_counts()
+    print(f"surface d7: {SURFACE_SHOTS} shots in {wall:.3f} s = {SURFACE_SHOTS / wall:.0f} shots/s "
+          f"(one call, separate_observables=True, host CPU {host_cpu()}, {os.cpu_count()} cores); "
+          f"kernel launches {launches}", flush=True)
+    if any(launches.values()):
+        fail("surface d7: the fully-direct path launched kernels")
+    n_det, n_obs = sampler._num_detectors, sampler._program.num_outputs - sampler._num_detectors
+    if det.shape != (SURFACE_SHOTS, n_det) or obs.shape != (SURFACE_SHOTS, n_obs) or det.dtype != np.bool_:
+        fail(f"surface d7: expected ({SURFACE_SHOTS}, {n_det}) and ({SURFACE_SHOTS}, {n_obs}) bool, "
+             f"got {det.shape} {obs.shape} {det.dtype}")
+    means = np.concatenate([det.mean(axis=0, dtype=np.float64), obs.mean(axis=0, dtype=np.float64)])
+    del det, obs
+
+    t0 = time.perf_counter()
+    dem = circuit.detector_error_model()
+    text = str(dem)
+    dem_s = time.perf_counter() - t0
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    print(f"surface d7: detector error model in {dem_s:.3f} s, {len(text.splitlines())} lines, "
+          f"sha256 {digest}; tsim_tpu's {reference.meta['dem_sha256']}", flush=True)
+    if digest != reference.meta["dem_sha256"]:
+        fail("surface d7: the DEM's text differs from tsim_tpu's")
+    marginal = dem_marginals(dem)
+    expected = np.where(sampler._reference_sample(), 1 - marginal, marginal)
+    sigma = np.sqrt(np.maximum(expected * (1 - expected), 1e-12) / SURFACE_SHOTS)
+    z = np.abs(means - expected) / sigma
+    worst = int(np.argmax(z))
+    print(f"surface d7: means vs the DEM's marginals: max |z| {z.max():.2f} at output {worst} "
+          f"(mean {means[worst]:.6f}, marginal {expected[worst]:.6f}; bound {SURFACE_Z_BOUND}); "
+          f"observable mean {means[n_det:]} vs {expected[n_det:]}", flush=True)
+    if not (z < SURFACE_Z_BOUND).all():
+        fail("surface d7: a mean lies beyond 5 sigma of its DEM marginal")
+    check_z("surface d7 vs tsim_tpu", means, SURFACE_SHOTS, reference.reference_means,
+            int(reference.meta["reference_shots"]))
+
+    c5 = surface_circuit(5)
+    host = c5.compile_detector_sampler(seed=1, device="cpu")
+    card = c5.compile_detector_sampler(seed=2)
+    if (host.direct_route, card.direct_route) != ("host_channels", "native_frame"):
+        fail(f"surface d5: routes {host.direct_route!r} and {card.direct_route!r}, expected "
+             "host_channels and native_frame")
+    timed = {}
+    for label, s in (("host_channels", host), ("native_frame", card)):
+        t0 = time.perf_counter()
+        out = s.sample(ROUTE_SHOTS, append_observables=True)
+        timed[label] = (out.mean(axis=0, dtype=np.float64), time.perf_counter() - t0)
+    print("surface d5: " + ", ".join(f"{k} {ROUTE_SHOTS / v[1]:.0f} shots/s" for k, v in timed.items()), flush=True)
+    check_z("surface d5 native_frame", timed["native_frame"][0], ROUTE_SHOTS,
+            timed["host_channels"][0], ROUTE_SHOTS, ref_label="host_channels")
+
+
+def m2d_and_oracle_phase() -> dict:
+    """Phase 22: m2d of one native run's records equals its detector rows;
+    the card's exact state probabilities of a fixed non-Clifford circuit
+    against the statevector oracle."""
+    from tsim_tpu_torch import Circuit
+    from tsim_tpu_torch.external.vec_sim.vec_sampler import VecSampler
+    from tsim_tpu_torch.stim_core.native_frame import NativeFrameSampler
+
+    circuit = surface_circuit(7)
+    records, det, obs = NativeFrameSampler(circuit.stim_circuit, seed=1).sample(M2D_SHOTS)
+    t0 = time.perf_counter()
+    got_det, got_obs = circuit.compile_m2d_converter().convert(measurements=records, separate_observables=True)
+    same = bool(np.array_equal(got_det, det) and np.array_equal(got_obs, obs))
+    print(f"m2d: {M2D_SHOTS} native records of d7 ({records.shape[1]} measurements) converted in "
+          f"{time.perf_counter() - t0:.3f} s; equal to the run's detector and observable rows: {same} "
+          f"({int(det.sum())} detection events)", flush=True)
+    if not same or not det.any():
+        fail("m2d: the converted records differ from the frame engine's detector rows")
+
+    oracle_circuit = Circuit(ORACLE_CIRCUIT)
+    oracle = VecSampler(oracle_circuit, seed=0)
+    sp = oracle_circuit.compile_state_probs(seed=0)
+    reset_all_launch_counts()
+    worst, total = 0.0, 0.0
+    for k in range(1 << oracle_circuit.num_measurements):
+        bits = np.array([(k >> i) & 1 for i in range(oracle_circuit.num_measurements)], np.uint8)
+        want = oracle.probability_of(bits)
+        got = sp.probability_of(bits, batch_size=4)
+        worst = max(worst, float(np.abs(got.astype(np.float64) - want).max()))
+        total += want
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    print(f"state probabilities vs the statevector oracle ({oracle_circuit.num_qubits} qubits, "
+          f"{1 << oracle_circuit.num_measurements} outcomes, oracle total {total:.9f}): max abs diff "
+          f"{worst:.3e} (limit {STATE_PROBS_TOL}); {sp!r}; exact kernels launched {launches}", flush=True)
+    if not worst <= STATE_PROBS_TOL:
+        fail("state probabilities: the card disagrees with the statevector oracle")
+    if not launches:
+        fail("state probabilities: no exact kernel was launched")
+    return launches
+
+
 def ablation_path(circuit, label: str, dev) -> tuple[dict, tuple, float]:
     """Phase 13: the K8 ablation on the rung ``circuit`` at MAIN_BATCH rows.
     Returns (launches, (full ms, plain ms, bound ms, bound by, rung), max abs err)."""
@@ -1302,6 +1511,13 @@ def main() -> None:
     # ---- phase 20: d5 distillation, compiled here and sampled on the card -
     f32_paths.append(d5_path())
     f32_launches = {k: sum(p[k] for p in f32_paths) for k in kernel.launch_counts}
+
+    # ---- phase 21: the d7 surface code on the native frame engine --------
+    surface_code_phase()
+
+    # ---- phase 22: m2d and the statevector oracle ------------------------
+    oracle_launches = m2d_and_oracle_phase()
+    exact_launches = {k: exact_launches[k] + oracle_launches.get(k, 0) for k in exact_launches}
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

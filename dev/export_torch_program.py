@@ -1,6 +1,6 @@
 """Export programs compiled by tsim_tpu, with reference data, for tsim_tpu_torch.
 
-Five programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
+Six programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
 
 * ``d3``: ``distillation_d3(p=0.05).compile_detector_sampler(seed=0)``,
   with the per-output means of tsim_tpu's own sampler (detectors then
@@ -21,7 +21,13 @@ Five programs, each a ``.npz`` under ``tsim_tpu_torch/programs/``:
   .compile_detector_sampler(seed=0)``, with the per-output means of
   tsim_tpu's own sampler at 2^20 shots, as the physics reference;
 * ``d5``: ``distillation_d5(p=0.02).compile_detector_sampler(seed=0)``,
-  with the per-output means of tsim_tpu's own sampler at 2^18 shots.
+  with the per-output means of tsim_tpu's own sampler at 2^18 shots;
+* ``surface_d7``: the d7 surface-code memory of ``bench_suite.py``'s panel,
+  ``rotated_surface_code_memory_z(7, 7)`` at p = 0.001 for its three noise
+  channels, ``.compile_detector_sampler(seed=0)``: a fully-direct program,
+  with the per-output means of tsim_tpu's C++ frame engine
+  (``TSIM_TPU_NATIVE_DIRECT=1``) at 2^18 shots and the sha256 of the text of
+  tsim_tpu's ``detector_error_model()`` of the circuit.
 
 The port compiles these circuits itself; each file is the reference its own
 compile must equal leaf for leaf, on a machine without JAX too.
@@ -71,6 +77,17 @@ def compile_d5():
     from tsim_tpu.models.distillation import distillation_d5
 
     return distillation_d5(p=0.02).compile_detector_sampler(seed=SEED)
+
+
+def surface_d7_circuit():
+    """bench_suite.py's d7 panel: the rotated d7 surface-code memory (7
+    rounds) at p = 0.001 after Cliffords, before measurements and after resets."""
+    from tsim_tpu.models.surface_code import rotated_surface_code_memory_z
+
+    return rotated_surface_code_memory_z(
+        7, 7, after_clifford_depolarization=0.001, before_measure_flip_probability=0.001,
+        after_reset_flip_probability=0.001,
+    )
 
 
 def compile_cultivation(checks: int = 2):
@@ -268,12 +285,51 @@ def _d5(args):
     )
 
 
+def _surface_d7(args):
+    import hashlib
+
+    circuit = surface_d7_circuit()
+    previous = os.environ.get("TSIM_TPU_NATIVE_DIRECT")
+    os.environ["TSIM_TPU_NATIVE_DIRECT"] = "1"  # tsim_tpu's route on an accelerator
+    try:
+        sampler = circuit.compile_detector_sampler(seed=SEED)
+        if sampler._program.components or sampler._native_frame_sampler() is None:
+            raise RuntimeError("the d7 surface code did not take the native frame route")
+        t0 = time.perf_counter()
+        samples = sampler.sample(REFERENCE_SHOTS, append_observables=True)
+        print(f"sampled {REFERENCE_SHOTS} shots in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    finally:
+        if previous is None:
+            del os.environ["TSIM_TPU_NATIVE_DIRECT"]
+        else:
+            os.environ["TSIM_TPU_NATIVE_DIRECT"] = previous
+    t0 = time.perf_counter()
+    dem = str(circuit.detector_error_model())
+    print(f"detector error model in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return dataclasses.replace(
+        export_sampler(sampler),
+        reference_means=samples.mean(axis=0),
+        meta={
+            "circuit": "tsim_tpu.models.surface_code.rotated_surface_code_memory_z(7, 7, "
+            "after_clifford_depolarization=0.001, before_measure_flip_probability=0.001, "
+            "after_reset_flip_probability=0.001)",
+            "compile": f"compile_detector_sampler(seed={SEED})",
+            "reference": "sample(shots, append_observables=True) with TSIM_TPU_NATIVE_DIRECT=1 "
+            "(tsim_tpu's C++ Pauli-frame engine)",
+            "reference_shots": REFERENCE_SHOTS,
+            "dem_sha256": hashlib.sha256(dem.encode()).hexdigest(),
+            "dem_lines": len(dem.splitlines()),
+        },
+    )
+
+
 PROGRAMS = {
     "d3": _d3,
     "d3_state_probs": _d3_state_probs,
     "cultivation": _cultivation,
     "cultivation_checks1": _cultivation_checks1,
     "d5": _d5,
+    "surface_d7": _surface_d7,
 }
 
 
@@ -284,6 +340,7 @@ def main() -> None:
         D3_PROGRAM,
         D3_STATE_PROBS_PROGRAM,
         D5_PROGRAM,
+        SURFACE_D7_PROGRAM,
     )
     from tsim_tpu_torch.program_io import save_npz
 
@@ -293,6 +350,7 @@ def main() -> None:
         "cultivation": CULTIVATION_PROGRAM,
         "cultivation_checks1": CULTIVATION_CHECKS1_PROGRAM,
         "d5": D5_PROGRAM,
+        "surface_d7": SURFACE_D7_PROGRAM,
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--program", choices=[*PROGRAMS, "all"], default="all")

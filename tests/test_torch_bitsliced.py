@@ -546,7 +546,7 @@ def test_the_port_imports_neither_jax_nor_tsim_tpu():
              REPO / "dev" / "torch_kernel_ablate.py", REPO / "dev" / "torch_profile_d3.py",
              REPO / "dev" / "torch_walk_variant.py", REPO / "dev" / "torch_time_rungs.py",
              REPO / "dev" / "torch_fma_variant.py", REPO / "dev" / "torch_copy_probe.py",
-             REPO / "dev" / "torch_call_time.py"]
+             REPO / "dev" / "torch_call_time.py", REPO / "dev" / "torch_surface_scaling.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):

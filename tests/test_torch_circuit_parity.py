@@ -5,7 +5,11 @@ use, a few seeded random circuits of ``tests/helpers/gen.py`` (T, R_Z, U3,
 R_PAULI, CCZ and the noise channels), and the ``Circuit`` arithmetic
 (``+``, ``*``, slicing, ``inverse``, ``without_noise`` and the rest of the
 structural surface), the text and the counters of the port's circuit equal
-tsim_tpu's. Stage d's surface raises, naming the roadmap.
+tsim_tpu's. Stage d's surface (the detector error model, the
+measurement-to-detection converter and the diagram) raises what tsim_tpu
+raises on bad input; what it returns is held to tsim_tpu's in
+``test_torch_dem.py``, ``test_torch_frame.py`` and
+``test_torch_clifford_and_encoder.py``.
 """
 
 from __future__ import annotations
@@ -192,8 +196,21 @@ def test_append_api_equals_tsim_tpu():
     assert port.approx_equals(tsim_tpu_torch.Circuit(str(port)), atol=1e-9)
 
 
+def _raised(call):
+    with pytest.raises(Exception) as info:
+        call()
+    return type(info.value).__name__, str(info.value)
+
+
 def test_stage_d_surface_raises():
-    c = models.distillation_d3(p=0.05)
-    for call in (c.detector_error_model, c.compile_m2d_converter, c.diagram):
-        with pytest.raises(NotImplementedError, match="stage d"):
-            call()
+    port, ref = models.distillation_d3(p=0.05), jax_distillation.distillation_d3(p=0.05)
+    calls = [
+        lambda c: c.detector_error_model(decompose_errors=True),
+        lambda c: c.diagram("nope"),
+        lambda c: c.compile_m2d_converter().convert(measurements=np.zeros((2, 1), bool)),
+        lambda c: c.detector_error_model(typo=True),
+    ]
+    for call in calls:
+        got = _raised(lambda: call(port))
+        assert got[0] in ("ValueError", "TypeError")
+        assert got == _raised(lambda: call(ref))

@@ -3,14 +3,16 @@
 ``tests/unit/utils/test_clifford_and_encoder.py``.
 
 The original reads the encoders' noiseless detectors from the Clifford
-frame sampler, which the port does not have yet (``ROADMAP.md`` item 1.8):
-here the port's own compiler proves them deterministic instead (every
-detector a constant direct output of the compiled program). The diagram
-case is left out (``Circuit.diagram`` is stage d of item 1.11).
+frame sampler; here the port's ``FrameSampler`` reads them, and the port's
+own compiler also proves them deterministic (every detector a constant
+direct output of the compiled program). Every diagram type renders, and its
+text equals tsim_tpu's.
 """
 
 import numpy as np
+import pytest
 
+import tsim_tpu
 import tsim_tpu_torch
 from tests.test_torch_parse import noiseless_outputs
 from tsim_tpu_torch.utils.clifford import (
@@ -18,6 +20,7 @@ from tsim_tpu_torch.utils.clifford import (
     is_clifford,
     parametric_to_clifford_gates,
 )
+from tsim_tpu_torch.stim_core.frame import FrameSampler
 from tsim_tpu_torch.utils.encoder import ColorEncoder5, SteaneEncoder
 
 
@@ -54,6 +57,9 @@ def _encoder_detectors_silent(encoder, logical):
     dets = noiseless_outputs(circ)[: circ.num_detectors]
     assert dets.shape[0] > 0
     assert not dets.any()
+    _, sampled, _ = FrameSampler(circ, seed=0).sample(256)
+    assert sampled.shape[1] == dets.shape[0]
+    assert not sampled.any()
 
 
 def test_steane_encoder_noiseless_detectors_silent():
@@ -89,3 +95,23 @@ def test_steane_logical_observable_deterministic():
     obs = noiseless_outputs(enc.circuit)[enc.circuit.num_detectors :]
     assert obs.shape[0] == 1
     assert obs.all()  # logical X flips the logical Z outcome deterministically
+    _, _, sampled = FrameSampler(enc.circuit, seed=1).sample(256)
+    assert sampled.shape[1] == 1
+    assert sampled.all()
+
+
+DIAGRAM_TEXT = "H 0\nTICK\nCNOT 0 1\nT 1\nTICK\nM 0 1\nDETECTOR rec[-1]"
+SURFACE_TEXT = str(tsim_tpu_torch.models.rotated_surface_code_memory_z(3, 2, after_clifford_depolarization=0.01))
+
+
+@pytest.mark.parametrize("text", [DIAGRAM_TEXT, SURFACE_TEXT], ids=["small", "surface_d3"])
+@pytest.mark.parametrize("ty", ["timeline-svg", "timeslice-svg", "pyzx", "pyzx-dets", "pyzx-meas"])
+def test_all_diagram_types_render(ty, text):
+    svg = str(tsim_tpu_torch.Circuit(text).diagram(ty))
+    assert svg.startswith("<svg"), ty
+    assert svg == str(tsim_tpu.Circuit(text).diagram(ty))
+
+
+def test_unknown_diagram_type_raises():
+    with pytest.raises(ValueError, match="Unknown diagram type"):
+        tsim_tpu_torch.Circuit(DIAGRAM_TEXT).diagram("nope")

@@ -177,10 +177,11 @@ def test_compile_program_writes_program_io_dataclasses():
 
 def test_clifford_program_has_no_component():
     """A Clifford circuit compiles to direct outputs only, and its sampler
-    keeps the raise of a program without components."""
+    draws them on the host (``test_torch_direct_sampling.py`` holds the
+    bits to tsim_tpu's)."""
     c = tsim_tpu_torch.models.rotated_surface_code_memory_z(3, 2, after_clifford_depolarization=0.02)
     program = compile_program(prepare_graph(c, sample_detectors=True), mode="sequential")
     assert not program.components and len(program.direct_f_indices) == c.num_detectors + 1
     sampler = c.compile_detector_sampler(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="fully-direct programs"):
-        sampler.sample(8)
+    assert sampler.direct_route in ("host_channels", "native_frame")
+    assert sampler.sample(8, append_observables=True).shape == (8, c.num_detectors + 1)

@@ -7,8 +7,8 @@ port against tsim_tpu: with the noise rows fixed and tsim_tpu's draw
 uniforms injected, every output bit of a postselected run is equal (exact
 mode on both sides, tsim_tpu evaluating exactly on the CPU); the port's
 reference sample equals tsim_tpu's on every output that is deterministic
-without noise. Fully-direct programs still raise (the port has no frame
-sampler yet).
+without noise. A fully-direct program ignores the mask, as tsim_tpu's does,
+and gives tsim_tpu's bits; it raises on a mask of the wrong shape.
 """
 
 import functools
@@ -265,10 +265,18 @@ def test_discarded_rows_zero_direct_observable():
 # ------------------------------------------------------- fully direct path
 @pytest.mark.parametrize("mask", [None, _mask(0, 1)])
 def test_fully_direct_program_raises(mask):
-    with pytest.raises(NotImplementedError, match="fully-direct"):
-        _sampler(DIRECT_ONLY).sample(10, postselection_mask=mask)
-    with pytest.raises(NotImplementedError, match="fully-direct"):
-        _sampler(DIRECT_ONLY).sample(10, postselection_mask=mask, use_detector_reference_sample=True)
+    """The host route of an exported fully-direct program: tsim_tpu's bits
+    at the same seed with or without a mask, and a mask of the wrong shape
+    raises."""
+    port = _sampler(DIRECT_ONLY, seed=21)
+    ref = tsim_tpu.Circuit(DIRECT_ONLY).compile_detector_sampler(seed=21)
+    assert port.direct_route == "host_channels"
+    for kw in ({}, {"use_detector_reference_sample": True, "append_observables": True}):
+        got = port.sample(500, postselection_mask=mask, **kw)
+        np.testing.assert_array_equal(got, ref.sample(500, postselection_mask=mask, **kw))
+        assert got.shape[0] == 500  # nothing is discarded
+    with pytest.raises(ValueError, match="postselection_mask"):
+        port.sample(10, postselection_mask=np.ones(3, bool))
 
 
 # ------------------------------------------------------ reference XOR rules

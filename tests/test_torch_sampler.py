@@ -8,6 +8,7 @@ differ only where the uniform lies within 1e-4 of the probability, and
 such rows must be rare; in exact mode every bit must be equal.
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -129,8 +130,8 @@ def test_observable_layouts(d3):
 
 def test_unported_options_raise(d3, tmp_path):
     """Postselection and reference samples are ported (test_torch_postselection.py),
-    and so is checkpointing (test_torch_checkpoint.py); other circuits and
-    fully-direct programs still raise."""
+    and so are checkpointing (test_torch_checkpoint.py) and fully-direct
+    programs (test_torch_direct_sampling.py); other committed circuits raise."""
     s = d3.compile_detector_sampler(seed=0, device="cpu")
     assert s.sample(10, postselection_mask=np.ones(15, bool)).shape == (10, 15)
     assert s.sample(10, use_detector_reference_sample=True).shape == (10, 15)
@@ -146,12 +147,21 @@ def test_unported_options_raise(d3, tmp_path):
 
 
 def test_fully_direct_program_raises():
+    """An exported fully-direct program samples on the host from its noise
+    model (tsim_tpu's bits at the same seed); a noise model whose channels
+    do not fit its signature matrix raises, asking for a Circuit."""
     sampler = tsim_tpu.Circuit("X_ERROR(0.1) 0\nM 0\nDETECTOR rec[-1]").compile_detector_sampler(seed=0)
     exported = export_sampler(sampler)
     assert not exported.program.components
     port = port_sampler.CompiledDetectorSampler(exported, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="fully-direct"):
-        port.sample(10)
+    np.testing.assert_array_equal(port.sample(1000), sampler.sample(1000))
+    bad = dataclasses.replace(
+        exported.noise, signature_matrix=np.zeros((0, exported.noise.signature_matrix.shape[1]), np.uint8)
+    )
+    with pytest.raises(ValueError, match="from a Circuit"):
+        port_sampler.CompiledDetectorSampler(
+            dataclasses.replace(exported, noise=bad), seed=0, device="cpu"
+        )
 
 
 def test_norm_deviation_check():

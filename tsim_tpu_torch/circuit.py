@@ -4,9 +4,9 @@ The tsim-compatible entry point (reference ``tsim/circuit.py``, copied from
 ``tsim_tpu/circuit.py``): circuits parse Stim-dialect text plus tsim
 shorthand (T, TPP, R_X/Y/Z, U3, R_PAULI, R_XX/YY/ZZ, CCZ, CCX) and compile
 on the host into measurement/detector samplers and state probabilities
-that run on a torch device. ``mesh=`` (multi-GPU) is not ported yet, nor
-the detector error model, the measurement-to-detection converter and the
-diagram.
+that run on a torch device, and into its detector error model,
+measurement-to-detection converter and diagrams. ``mesh=`` (multi-GPU) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -414,20 +414,52 @@ class Circuit:
             device=device,
         )
 
-    def detector_error_model(self, **kwargs):
-        raise NotImplementedError(
-            "Circuit.detector_error_model is not ported yet (ROADMAP.md queue 1, item 1.11 stage d)"
+    def detector_error_model(
+        self,
+        *,
+        allow_non_deterministic_observables: bool = True,
+        decompose_errors: bool = False,
+        flatten_loops: bool = False,
+        allow_gauge_detectors: bool = False,
+        approximate_disjoint_errors: bool = False,
+        ignore_decomposition_failures: bool = False,
+        block_decomposition_from_introducing_remnant_edges: bool = False,
+    ):
+        """Build the circuit's detector error model.
+
+        ``allow_non_deterministic_observables`` defaults to True (matching
+        reference ``noise/dem.py:11``): observables whose noiseless value is
+        random get rewritten rather than rejected. Decomposition of error
+        mechanisms requires it to be False (stim semantics).
+        """
+        from .noise.dem import get_detector_error_model
+
+        return get_detector_error_model(
+            self._stim_circ,
+            allow_non_deterministic_observables=(
+                allow_non_deterministic_observables
+            ),
+            decompose_errors=decompose_errors,
+            flatten_loops=flatten_loops,
+            allow_gauge_detectors=allow_gauge_detectors,
+            approximate_disjoint_errors=approximate_disjoint_errors,
+            ignore_decomposition_failures=ignore_decomposition_failures,
+            block_decomposition_from_introducing_remnant_edges=(
+                block_decomposition_from_introducing_remnant_edges
+            ),
         )
 
     def compile_m2d_converter(self, *, skip_reference_sample: bool = False):
-        raise NotImplementedError(
-            "Circuit.compile_m2d_converter is not ported yet (ROADMAP.md queue 1, item 1.11 stage d)"
+        from .stim_core.m2d import CompiledMeasurementsToDetectionEventsConverter
+
+        return CompiledMeasurementsToDetectionEventsConverter(
+            self._stim_circ, skip_reference_sample=skip_reference_sample
         )
 
     def diagram(self, type: str = "timeline-svg", **kwargs):
-        raise NotImplementedError(
-            "Circuit.diagram is not ported yet (ROADMAP.md queue 1, item 1.11 stage d)"
-        )
+        from .utils.diagram import render_diagram
+
+        return render_diagram(self, type, **kwargs)
 
     def cast_to_stim(self):
         return self._stim_circ

@@ -23,6 +23,9 @@ D3_STATE_PROBS_PROGRAM = PROGRAM_DIR / "distillation_d3_p0.05_state_probs.npz"
 D5_PROGRAM = PROGRAM_DIR / "distillation_d5_p0.02.npz"
 CULTIVATION_PROGRAM = PROGRAM_DIR / "cultivation_d3_p0.001_checks2.npz"
 CULTIVATION_CHECKS1_PROGRAM = PROGRAM_DIR / "cultivation_d3_p0.001_checks1.npz"
+# Fully direct: the reference for the frame engine and the DEM (its meta
+# holds the sha256 of tsim_tpu's DEM text); load it with program_io.load_npz.
+SURFACE_D7_PROGRAM = PROGRAM_DIR / "surface_code_d7_p0.001.npz"
 _CULTIVATION_PROGRAMS = {1: CULTIVATION_CHECKS1_PROGRAM, 2: CULTIVATION_PROGRAM}
 
 

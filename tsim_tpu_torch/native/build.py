@@ -56,7 +56,8 @@ def library_path(name: str) -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile (if needed) and dlopen ``src/<name>.cpp``."""
+    """Compile (if needed) and dlopen ``src/<name>.cpp``; a failure of
+    either raises :class:`NativeBuildError`."""
     with _LOCK:
         lib = _CACHE.get(name)
         if lib is not None:
@@ -76,6 +77,9 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"native build failed:\n{e.stderr}"
                 ) from e
             os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
+        try:
+            lib = ctypes.CDLL(so_path)
+        except OSError as e:
+            raise NativeBuildError(f"cannot load {so_path}: {e}") from e
         _CACHE[name] = lib
         return lib

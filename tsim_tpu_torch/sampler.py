@@ -11,6 +11,10 @@ pipeline: batch k's (shots, outputs) bits are copied to pinned host memory
 on a stream of their own while the device works on batch k + 1
 (:class:`_RowsToHost`). With a postselection mask, shots whose direct
 detectors fire are discarded on the device before any evaluation.
+A fully-direct program (no components, as every Clifford circuit compiles
+to) needs no evaluation: it is drawn on the host, as in ``tsim_tpu``, by the
+C++ Pauli-frame engine (``stim_core/native_frame.py``) on a CUDA device, or
+by the seeded host ``ChannelSampler`` (``direct_route`` names which).
 :class:`CompiledStateProbs` evaluates joint-mode programs exactly. Every
 sampler saves and loads a checkpoint that continues its sample stream.
 """
@@ -37,11 +41,12 @@ from .compile.sample_eval import (
 from .compile import aot_cache
 from .compile.pipeline import compile_program
 from .core.graph_prep import prepare_graph
-from .noise.channels import ChannelSampler
+from .noise.channels import Channel, ChannelSampler
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
 from .program_io import (
     ExportedProgram,
+    NoiseModel,
     flatten,
     noise_from_reference,
     read_npz,
@@ -264,6 +269,37 @@ def _direct_detector_mask(program, num_detectors: int) -> np.ndarray:
     return mask[:num_detectors]
 
 
+class _NoiseModelChannels(ChannelSampler):
+    """The host ``ChannelSampler`` of a noise model's simplified channels.
+
+    A ``ChannelSampler`` that ``tsim_tpu`` builds from a circuit samples
+    only its simplified channels and signature matrix, which
+    ``program_io.NoiseModel`` holds as they are, so this one draws the same
+    bits at the same seed. A noise model whose channels do not fit its
+    signature matrix raises ValueError.
+    """
+
+    def __init__(self, noise: NoiseModel, seed: int):
+        signatures = np.asarray(noise.signature_matrix, np.uint8)
+        if signatures.ndim != 2 or any(
+            len(ch.probs) != 2 ** len(ch.unique_col_ids)
+            or any(not 0 <= i < signatures.shape[0] for i in ch.unique_col_ids)
+            for ch in noise.channels
+        ):
+            raise ValueError(
+                "a program without components samples on the host from its noise model, "
+                "whose channels do not fit its signature matrix here: compile such a "
+                "program from a Circuit"
+            )
+        self.channels = [
+            Channel(probs=np.asarray(ch.probs, np.float64), unique_col_ids=tuple(ch.unique_col_ids))
+            for ch in noise.channels
+        ]
+        self.signature_matrix = signatures
+        self._rng = np.random.default_rng(seed)
+        self._sparse_data = self._precompute_sparse(self.channels, self.signature_matrix)
+
+
 class _RowsToHost:
     """Moves batches of (rows, n) 0/1 uint8 bits on the device into rows of
     the host bool array ``result``, behind the device's later work.
@@ -370,7 +406,8 @@ class _CompiledSamplerBase:
     ``source`` is a :class:`~tsim_tpu_torch.circuit.Circuit`, compiled here
     with ``strategy`` (``compile_stats`` then holds the compile's stages and
     planner), or an :class:`~tsim_tpu_torch.program_io.ExportedProgram`
-    (``compile_stats`` None). ``evaluation`` selects how rungs are evaluated: "f32" (the default;
+    (``compile_stats`` None; with no circuit, a fully-direct program takes
+    the host channel route). ``evaluation`` selects how rungs are evaluated: "f32" (the default;
     rungs that fail ``sample_eligible`` are still exact) or "exact" (every
     rung; the norm monitor's band narrows from 3e-3 to 1e-5). ``per_term``
     True runs every f32 rung through the per-term kernels (the slower
@@ -402,9 +439,39 @@ class _CompiledSamplerBase:
         self._program = exported.program
         self._noise = exported.noise
         self._num_detectors = int(exported.num_detectors)
-        self._tables = ProgramTables(exported.program, evaluation, per_term).to(self.device)
+        prog = exported.program
+        self._direct_f_indices = np.asarray(prog.direct_f_indices)
+        self._direct_flips = np.asarray(prog.direct_flips, dtype=np.bool_)
+        self._direct_const_mask = (
+            np.asarray(prog.direct_const_mask, dtype=np.bool_)
+            if prog.direct_const_mask is not None
+            else np.zeros(len(self._direct_f_indices), dtype=np.bool_)
+        )
+        self._direct_reindex = (
+            np.asarray(prog.output_reindex) if prog.output_reindex is not None else None
+        )
+        n_direct = len(self._direct_f_indices)
+        # Column j of the host f-sample is direct output j, with no flip,
+        # constant or permutation in between (tsim_tpu's scatter fastpath).
+        self._direct_fastpath = (
+            n_direct > 0
+            and np.array_equal(self._direct_f_indices, np.arange(n_direct))
+            and self._direct_reindex is None
+            and not (self._direct_flips.any() or self._direct_const_mask.any())
+        )
+        self._direct_detector_mask = _direct_detector_mask(prog, self._num_detectors)
+        # A fully-direct program is drawn on the host (tsim_tpu's seeds): by
+        # the native frame engine, built at its first use, or by this
+        # ChannelSampler.
+        self._channel_sampler = None
+        self._native_frame = None
+        if not prog.components:
+            self._channel_sampler = _NoiseModelChannels(
+                exported.noise, int(np.random.default_rng(seed).integers(0, 2**30))
+            )
+            self._native_frame_seed = int(np.random.default_rng(seed + 1).integers(0, 2**30))
+        self._tables = ProgramTables(prog, evaluation, per_term).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
-        self._direct_detector_mask = _direct_detector_mask(exported.program, self._num_detectors)
         self._reference_seed = seed
         self._reference: np.ndarray | None = None
         # Largest normalization deviation of the last sample() call (the
@@ -443,13 +510,76 @@ class _CompiledSamplerBase:
                 return f"{n / 1024:.1f} kB"
             return f"{n / 1024**2:.1f} MB"
 
+        route = self.direct_route
         return (
             f"{type(self).__name__}({n_direct} direct, {int(np.sum(c_graphs))} graphs, "
             f"{error_bits} error channel bits, "
             f"{max(num_outputs) if num_outputs else 0} outputs for largest cc, "
             f"≤ {max(c_params) if c_params else 0} parameters, {a} A terms, "
-            f"{b} B terms, {c} C terms, {d} D terms, {fmt(total_bytes)})"
+            f"{b} B terms, {c} C terms, {d} D terms, {fmt(total_bytes)}"
+            f"{'' if route is None else f', {route} route'})"
         )
+
+    # ---------------------------------------------------------------- direct
+    @property
+    def direct_route(self) -> str | None:
+        """How a fully-direct program is sampled, as tsim_tpu routes it:
+        "native_frame" (the C++ Pauli-frame engine, for a Clifford circuit
+        on a CUDA device or with ``TSIM_TPU_NATIVE_DIRECT=1``) or
+        "host_channels" (the host ``ChannelSampler``: any other fully-direct
+        program). None for a program with components."""
+        if self._program.components:
+            return None
+        native = self.device.type == "cuda" or os.environ.get("TSIM_TPU_NATIVE_DIRECT") == "1"
+        if native and self.circuit is not None and self.circuit.is_clifford:
+            return "native_frame"
+        return "host_channels"
+
+    def _native_frame_sampler(self):
+        """The native Pauli-frame engine of the fully-direct Clifford
+        circuit, built at first use (None for any other circuit). A failure
+        to build or load ``frame_kernels`` raises ``NativeBuildError``."""
+        if self._native_frame is None:
+            if self.circuit is None or not self.circuit.is_clifford:
+                return None
+            from .stim_core.native_frame import NativeFrameSampler
+
+            # The engine gives detector flips (observables it reports
+            # absolutely): detector samplers fold the noiseless detector
+            # values into its op stream (det_bias), so their rows come out
+            # absolute, as the ZX path gives them.
+            det_bias = self._reference_sample()[: self._num_detectors] if self._sample_detectors else None
+            self._native_frame = NativeFrameSampler(
+                self.circuit.stim_circuit, seed=self._native_frame_seed, det_bias=det_bias
+            )
+        return self._native_frame
+
+    def _sample_direct(self, shots: int) -> np.ndarray:
+        """(shots, num_outputs) bool of a fully-direct program from the host
+        ``ChannelSampler``."""
+        f_params = self._channel_sampler.sample(shots)
+        if self._direct_fastpath:
+            return f_params[:, : len(self._direct_f_indices)].view(np.bool_)
+        if f_params.shape[1] == 0:
+            result = np.broadcast_to(self._direct_flips, (shots, len(self._direct_f_indices))).copy()
+        else:
+            result = f_params[:, self._direct_f_indices] ^ self._direct_flips
+        if self._direct_const_mask.any():
+            result[:, self._direct_const_mask] = self._direct_flips[self._direct_const_mask]
+        if self._direct_reindex is not None:
+            result = result[:, self._direct_reindex]
+        return result.view(np.bool_)
+
+    def _sample_fully_direct(self, shots: int) -> np.ndarray:
+        """(shots, num_outputs) bool of a fully-direct program, on the route
+        :attr:`direct_route` names. The frame engine's result may be a
+        buffer it reuses once the caller drops it."""
+        if self.direct_route == "native_frame":
+            native = self._native_frame_sampler()
+            if self._sample_detectors:
+                return native.sample_det_obs_joined(shots)
+            return native.sample(shots, include_measurements=True)[0]
+        return self._sample_direct(shots)
 
     # ------------------------------------------------------- checkpointing
     def _options(self) -> dict:
@@ -459,13 +589,19 @@ class _CompiledSamplerBase:
     def save(self, path) -> None:
         """Checkpoint the sampler as one ``.npz`` (no pickle): the program,
         noise model and detector count as ``program_io`` writes them, then
-        the class, seed, device type and options, and the generator's state.
-        :meth:`load` rebuilds the tables and continues the same sample stream."""
+        the class, seed, device type and options, the circuit's text, the
+        generator's state and, for a fully-direct program, the host
+        ``ChannelSampler``'s. :meth:`load` rebuilds the tables and continues
+        the same sample stream; the native frame engine restarts from its
+        seed, as tsim_tpu's does after a load."""
         exported = ExportedProgram(program=self._program, noise=self._noise, num_detectors=self._num_detectors)
         arrays, header = flatten(exported)
         header["checkpoint"] = {
             "class": type(self).__name__, "seed": self._reference_seed,
             "device": self.device.type, "options": self._options(),
+            "circuit": None if self.circuit is None else str(self.circuit),
+            "channel_state": None if self._channel_sampler is None
+            else self._channel_sampler._rng.bit_generator.state,
         }
         arrays["checkpoint.generator_state"] = self._generator.get_state().numpy()
         write_npz(path, arrays, header)
@@ -484,6 +620,12 @@ class _CompiledSamplerBase:
         state = torch.from_numpy(arrays.pop("checkpoint.generator_state"))
         obj = cls(unflatten(arrays, header), seed=saved["seed"], device=saved["device"], **saved["options"])
         obj._generator.set_state(state)
+        if saved.get("circuit") is not None:
+            from .circuit import Circuit
+
+            obj.circuit = Circuit(saved["circuit"])
+        if saved.get("channel_state") is not None:
+            obj._channel_sampler._rng.bit_generator.state = saved["channel_state"]
         return obj
 
     def _peak_bytes_per_sample(self) -> int:
@@ -513,13 +655,6 @@ class _CompiledSamplerBase:
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
 
-    def _require_components(self) -> None:
-        if not self._program.components:
-            raise NotImplementedError(
-                "fully-direct programs (no components) sample through tsim_tpu's "
-                "native frame sampler, which the port does not have yet"
-            )
-
     def _resolve_batch_size(self, shots: int, batch_size: int | None) -> int:
         if batch_size is not None:
             return batch_size
@@ -533,10 +668,10 @@ class _CompiledSamplerBase:
         on f = 0, computed once per sampler and cached. Its draws come from
         a generator of their own, so the sample stream does not depend on
         whether a reference was asked for; outputs that are random without
-        noise take one draw, as in tsim_tpu.
+        noise take one draw, as in tsim_tpu. A fully-direct program's is its
+        direct outputs at f = 0, by the same path.
         """
         if self._reference is None:
-            self._require_components()
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self._reference_seed)
             f_ref = torch.zeros((1, self._device_channels.num_f), dtype=torch.uint8, device=self.device)
@@ -547,12 +682,18 @@ class _CompiledSamplerBase:
 
     def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None) -> np.ndarray:
         """(shots, num_outputs) bool samples; ``fold``, a (num_outputs,) bool
-        row, is XORed into every row on the device (the reference folds)."""
+        row, is XORed into every row on the device (the reference folds). A
+        fully-direct program is drawn on the host in one go (``batch_size``
+        unused) and folded there."""
         self._validate_shot_args(shots, batch_size)
         num_outputs = self._program.num_outputs
         if shots == 0:
             return np.empty((0, num_outputs), dtype=np.bool_)
-        self._require_components()
+        if not self._program.components:
+            samples = self._sample_fully_direct(shots)
+            if fold is not None:
+                samples ^= np.asarray(fold, np.bool_)
+            return samples
         batch_size = self._resolve_batch_size(shots, batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
@@ -613,7 +754,6 @@ class _CompiledSamplerBase:
         n_out, nd = self._program.num_outputs, self._num_detectors
         if shots == 0:
             return np.empty((0, n_out), dtype=np.bool_)
-        self._require_components()
         batch_size = self._resolve_batch_size(shots, batch_size)
         fold_kept, fold_dropped = np.zeros(n_out, np.bool_), np.zeros(n_out, np.bool_)
         if fold_detector_reference or fold_observable_reference:
@@ -743,6 +883,33 @@ class CompiledDetectorSampler(_CompiledSamplerBase):
                 "separate_observables=True is mutually exclusive with the "
                 "prepend/append observable layouts"
             )
+        if (
+            postselection_mask is None
+            and not (use_detector_reference_sample or use_observable_reference_sample)
+            and not prepend_observables
+            and self.direct_route == "native_frame"
+        ):
+            # The frame engine gives detectors and observables in their
+            # final (bit-packed) layout; det_bias made the detectors absolute.
+            _, det, obs = self._native_frame_sampler().sample(
+                shots, bit_packed=bit_packed, include_measurements=False
+            )
+            if separate_observables:
+                return det, obs
+            if append_observables:
+                if bit_packed:
+                    joined = np.concatenate(
+                        [
+                            np.unpackbits(det, axis=1, bitorder="little")[:, : self._num_detectors],
+                            np.unpackbits(obs, axis=1, bitorder="little")[
+                                :, : self._program.num_outputs - self._num_detectors
+                            ],
+                        ],
+                        axis=1,
+                    ).astype(bool)
+                    return _maybe_bit_pack(joined, bit_packed=True)
+                return np.concatenate([det, obs], axis=1)
+            return det
         prefilter_mask = self._coerce_postselection_mask(postselection_mask)
         nd = self._num_detectors
         if prefilter_mask is None:
