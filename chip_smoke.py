@@ -134,12 +134,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
     state probabilities (``compile_state_probs(seed=0).probability_of``) of
     a fixed five-qubit circuit with T, R_Z and U3 gates on each of its 32
     outcomes, within 1e-5 of the port's statevector oracle (``VecSampler``),
-    and the exact kernels that launched.
+    and the exact kernels that launched;
+23. the sharded path (``mesh=``, ``tsim_tpu_torch/parallel/shard.py``) on a
+    mesh of every card where there are two or more, else of two replicas of
+    card 0 (printed, with the devices' names): phase 4's call with
+    ``mesh=mesh`` (norm deviation at most 3e-3; means against tsim_tpu's as
+    in phase 4 and, per output, within 5 sigma of phase 4's unsharded run,
+    as ``__graft_entry__.py:80-99`` holds tsim_tpu's sharded sampler; K1
+    and K2 launched on every device as often as phase 4's run launched
+    them, times the shards there; shots/s beside phase 4's); phase 17's
+    sync count on the mesh (0 a batch); ``sharded_sampler_step`` on 2^16
+    rows of injected noise and draw uniforms equal to
+    ``sample_program_with_deviation`` on the whole except borderline rows,
+    its norm deviation the max of the shards'; phase 10's postselected
+    cultivation on the mesh (same bounds; survivors/s); phase 6's state
+    probabilities on the mesh equal to the unsharded estimator of the same
+    seed within rtol 1e-6 (calls/s). Its launches are printed per device,
+    on lines of their own, and are not added to the kernels line.
 
-Phases 4, 7, 10, 12, 16 and 20 sample through the pipelined batch loop
+Phases 4, 7, 10, 12, 16, 20 and 23 sample through the pipelined batch loop
 (``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
-phases 4, 6, 7, 10 to 13, 16, 20, 21 and 22 runs with the launch counts set to
-0 just before it and read just after; a kernel of the path that was not
+phases 4, 6, 7, 10 to 13, 16, 20, 21, 22 and 23 runs with the launch counts
+set to 0 just before it and read just after; a kernel of the path that was not
 launched fails the run (in phase 21, any kernel launched does). The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
 ``f32_bound``, ``exact_bound`` and ``approx_bound``; a kernel faster than its
@@ -372,6 +388,12 @@ def check_means(label: str, out: np.ndarray, exported) -> None:
     """Per-output z-scores of ``out``'s means against the means tsim_tpu sampled."""
     check_z(label, out.mean(axis=0, dtype=np.float64), out.shape[0],
             exported.reference_means, int(exported.meta["reference_shots"]))
+
+
+def synchronize(mesh=None) -> None:
+    """Wait for every device of ``mesh`` (the current card without one)."""
+    for device in [None] if mesh is None else mesh.distinct:
+        torch.cuda.synchronize(device)
 
 
 def check_launched(label: str, launches: dict, expected) -> None:
@@ -785,11 +807,12 @@ def reference_fold(cultivation) -> np.ndarray:
 
 
 def postselected_path(cultivation, label: str, expected, random_outputs: np.ndarray,
-                      per_term: bool = False) -> dict:
-    """Phases 10 and 11: postselected f32 sampling of 2-check cultivation
+                      per_term: bool = False, mesh=None) -> dict:
+    """Phases 10, 11 and 23: postselected f32 sampling of 2-check cultivation
     with both reference samples, checked against tsim_tpu's export.
     ``random_outputs`` marks the outputs that are random without noise;
-    ``per_term`` compiles the sampler onto the per-term kernels."""
+    ``per_term`` compiles the sampler onto the per-term kernels; ``mesh``
+    shards it (the card otherwise)."""
     from tsim_tpu_torch.compile import sample_eval
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
@@ -800,14 +823,15 @@ def postselected_path(cultivation, label: str, expected, random_outputs: np.ndar
         batch_size=MAIN_BATCH, postselection_mask=mask, use_detector_reference_sample=True,
         use_observable_reference_sample=True, separate_observables=True,
     )
-    sampler = cultivation.compile_detector_sampler(seed=0, device=DEVICE, per_term=per_term)
+    sampler = cultivation.compile_detector_sampler(
+        seed=0, device=DEVICE if mesh is None else None, per_term=per_term, mesh=mesh)
     sampler.sample(MAIN_BATCH, **kw)  # warm-up
-    torch.cuda.synchronize()
+    synchronize(mesh)
     kernel.reset_launch_counts()
     sample_eval.reset_self_test()
     t0 = time.perf_counter()
     det, obs = sampler.sample(CULTIVATION_SHOTS, **kw)
-    torch.cuda.synchronize()
+    synchronize(mesh)
     wall = time.perf_counter() - t0
     launches = dict(kernel.launch_counts)
     check_launched(label, launches, expected)
@@ -899,18 +923,17 @@ def small_batch_path(circuit) -> dict:
     return launches
 
 
-def sync_phase(circuit) -> None:
-    """Phase 17: the host synchronisations of d3 f32 ``sample()`` calls of 6
-    and 2 batches, under ``set_sync_debug_mode("warn")``, after two warm-up
-    calls of 2 batches (the self-test's sync falls in those). A sync a batch
-    shows as a difference between the two counts; what is left is made once
-    a call."""
+def sync_phase(sampler, label: str = "syncs") -> None:
+    """Phases 17 and 23: the host synchronisations of d3 f32 ``sample()``
+    calls of 6 and 2 batches, under ``set_sync_debug_mode("warn")``, after
+    two warm-up calls of 2 batches (the self-test's sync falls in those). A
+    sync a batch shows as a difference between the two counts; what is left
+    is made once a call."""
     import warnings
 
-    sampler = circuit.compile_detector_sampler(seed=1, device=DEVICE)
     for _ in range(2):
         sampler.sample(2 * MAIN_BATCH, batch_size=MAIN_BATCH)
-    torch.cuda.synchronize()
+    synchronize(sampler._mesh)
     counts, where = {}, {}
     for n in (6, 2):
         with warnings.catch_warnings(record=True) as caught:
@@ -928,14 +951,14 @@ def sync_phase(circuit) -> None:
         for w in syncs:
             key = f"{Path(w.filename).name}:{w.lineno}"
             where[n][key] = where[n].get(key, 0) + 1
-    print(f"syncs: sample() of 6 batches {counts[6]} (at {where[6] or 'nowhere'}), of 2 batches "
+    print(f"{label}: sample() of 6 batches {counts[6]} (at {where[6] or 'nowhere'}), of 2 batches "
           f"{counts[2]} (at {where[2] or 'nowhere'}): {(counts[6] - counts[2]) / 4:g} a batch in the "
           f"steady state, {counts[2] - (counts[6] - counts[2]) / 2:g} a call", flush=True)
     if counts[6] != counts[2]:
-        fail("syncs: the two calls made different numbers of host synchronisations, "
+        fail(f"{label}: the two calls made different numbers of host synchronisations, "
              "so the batch loop synchronises with the host per batch")
     if counts[2] == 0:
-        fail("syncs: the debug mode counted no sync, not even the call's read of the norm "
+        fail(f"{label}: the debug mode counted no sync, not even the call's read of the norm "
              "deviation: the count is at fault")
 
 
@@ -1321,6 +1344,160 @@ def long_row_phase(dev) -> None:
     check_launched("long rows", dict(kernel.launch_counts), list(kernel.KERNELS))
 
 
+SHARD_Z_BOUND = 5.0  # phase 23: per-output z against phase 4's unsharded run (__graft_entry__.py:80-99)
+STEP_ROWS = 1 << 16  # phase 23: rows of the low-level sharded step
+
+
+def borderline_rows(tables, f, draws, border: float = 1e-4) -> torch.Tensor:
+    """Rows where some rung's uniform lies within ``border`` of the
+    probability it is compared with (``tests/test_torch_sampler.py``): the
+    only rows two evaluations of the same draws may disagree on."""
+    from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample
+    from tsim_tpu_torch.ops.gf2 import static_take_columns
+    from tsim_tpu_torch.sampler import _sample_component
+
+    near = torch.zeros(f.shape[0], dtype=torch.bool, device=f.device)
+    it = iter(draws)
+    for comp in tables.components:
+        comp_draws = [next(it) for _ in comp.rungs[1:]]
+        bits, _ = _sample_component(comp, f, None, iter(comp_draws))
+        noise_bits = static_take_columns(f, comp.f_selection)
+        mass = evaluate_abs_sample(comp.rungs[0], noise_bits)
+        for k, rung in enumerate(comp.rungs[1:]):
+            x = torch.cat([noise_bits, bits[:, :k], torch.ones_like(bits[:, :1])], dim=1)
+            p_one = evaluate_abs_sample(rung, x)
+            near |= (comp_draws[k] - torch.clamp(p_one / mass, 0.0, 1.0)).abs() < border
+            mass = torch.where(bits[:, k].bool(), p_one, mass - p_one)
+    return near
+
+
+def device_launches() -> dict:
+    """{device: {kernel: launches}} since the counts were last set to 0."""
+    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+
+    out = {}
+    for counts in (sample_eval.device_launch_counts, exact_eval.device_launch_counts):
+        for device, per in counts.items():
+            out.setdefault(device, {}).update({k: v for k, v in per.items() if v})
+    return out
+
+
+def sharded_phase(circuit, cultivation, random_outputs, unsharded_means, unsharded_launches: dict,
+                  unsharded_rate: float) -> None:
+    """Phase 23: the sharded path. A mesh over every card where there are
+    two or more, else two replicas of card 0."""
+    from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
+    from tsim_tpu_torch.parallel.shard import ShotMesh, make_shot_mesh, sharded_sampler_step
+    from tsim_tpu_torch.sampler import ProgramTables, sample_program_with_deviation
+
+    if torch.cuda.device_count() >= 2:
+        mesh, kind = make_shot_mesh(), f"every card ({torch.cuda.device_count()})"
+    else:
+        mesh, kind = ShotMesh(["cuda:0"] * 2), "two replicas of card 0"
+    first = mesh.devices[0]
+    shards_on = {str(d): mesh.devices.count(d) for d in mesh.distinct}
+    print(f"sharded: mesh of {kind}: " + ", ".join(
+        f"{d} ({torch.cuda.get_device_name(d)})" for d in mesh.devices), flush=True)
+
+    # d3 f32, phase 4's call on the mesh.
+    exported = circuit.load()
+    sampler = circuit.compile_detector_sampler(seed=0, mesh=mesh)
+    if sampler._mesh is not mesh or sampler.device != first:
+        fail("sharded: the sampler does not run on the mesh it was given")
+    sampler.sample(MAIN_BATCH, batch_size=MAIN_BATCH, append_observables=True)  # warm-up
+    synchronize(mesh)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(MAIN_SHOTS, batch_size=MAIN_BATCH, append_observables=True)
+    synchronize(mesh)
+    wall = time.perf_counter() - t0
+    per_device = device_launches()
+    print(f"sharded d3: launches per device {per_device}", flush=True)
+    for device, k in shards_on.items():
+        for name in ("wide", "small"):
+            want = k * unsharded_launches[name]
+            if per_device.get(device, {}).get(name, 0) != want:
+                fail(f"sharded d3: {name} launched {per_device.get(device, {}).get(name, 0)} times on "
+                     f"{device}, expected {want} ({k} shards, each as phase 4's run)")
+    if out.shape != (MAIN_SHOTS, exported.program.num_outputs) or out.dtype != np.bool_:
+        fail("sharded d3: samples of the wrong shape or type")
+    dev_norm = sampler.last_norm_deviation
+    print(f"sharded d3: max norm deviation {dev_norm:.3e} (limit {NORM_TOL}); {MAIN_SHOTS} shots in "
+          f"{wall:.3f} s = {MAIN_SHOTS / wall:.0f} shots/s on the mesh, phase 4 unsharded "
+          f"{unsharded_rate:.0f} shots/s ({MAIN_SHOTS / wall / unsharded_rate:.3f}x)", flush=True)
+    if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
+        fail("sharded d3: norm deviation above the f32 tolerance")
+    check_means("sharded d3", out, exported)
+    means = out.mean(axis=0, dtype=np.float64)
+    pooled = (means + unsharded_means) / 2
+    z = np.abs(means - unsharded_means) / np.sqrt(np.maximum(pooled * (1 - pooled), 1e-12) * 2 / MAIN_SHOTS)
+    print(f"sharded d3: z against phase 4's run, max {z.max():.2f} (bound {SHARD_Z_BOUND})", flush=True)
+    if not z.max() < SHARD_Z_BOUND:
+        fail("sharded d3: a mean disagrees with the unsharded run's beyond 5 sigma")
+    del out
+    sync_phase(circuit.compile_detector_sampler(seed=1, mesh=mesh), "sharded syncs")
+
+    # The low-level step on injected noise and draw uniforms.
+    tables = ProgramTables(exported.program).to(first)
+    noise = DeviceChannelSampler(exported.noise, first)
+    g = torch.Generator(device=first).manual_seed(23)
+    f = noise.sample_from_uniforms(torch.rand((STEP_ROWS, noise.num_channels), generator=g, device=first))
+    draws = [torch.rand((STEP_ROWS,), generator=g, device=first)
+             for comp in tables.components for _ in comp.rungs[1:]]
+    got, dev = sharded_sampler_step(tables, mesh)(f, [None] * mesh.size, draws)
+    want, _ = sample_program_with_deviation(tables, f, None, draws)
+    mismatched = (got != want).any(dim=1)
+    near = borderline_rows(tables, f, draws)
+    cuts = [torch.tensor_split(d, mesh.size) for d in draws]
+    shard_devs = [float(sample_program_with_deviation(tables, fs, None, [c[i] for c in cuts])[1][0])
+                  for i, fs in enumerate(torch.tensor_split(f, mesh.size))]
+    print(f"sharded step: {STEP_ROWS} rows on {mesh.size} shards: {int(mismatched.sum())} rows differ from "
+          f"the whole batch's, {int(near.sum())} borderline; norm deviation {float(dev[0]):.3e}, "
+          f"the shards' {' '.join(f'{d:.3e}' for d in shard_devs)}", flush=True)
+    if (mismatched & ~near).any():
+        fail("sharded step: rows that are not borderline differ from the whole batch's")
+    if float(dev[0]) != max(shard_devs):
+        fail("sharded step: the norm deviation is not the max of the shards'")
+    del tables, noise, f, draws, got, want
+
+    # Postselected 2-check cultivation, phase 10's call on the mesh.
+    reset_all_launch_counts()
+    postselected_path(cultivation, "sharded postselected cultivation", ["wide", "small", "self_test"],
+                      random_outputs, mesh=mesh)
+    per_device = device_launches()
+    print(f"sharded postselected cultivation: launches per device {per_device}", flush=True)
+    for device in shards_on:
+        if not all(per_device.get(device, {}).get(k, 0) for k in ("wide", "small", "self_test")):
+            fail(f"sharded postselected cultivation: {device} did not launch wide, small and self_test")
+
+    # State probabilities, phase 6's call on the mesh, against the unsharded
+    # estimator of the same seed.
+    states = circuit.load_state_probs().replay["states"]
+    sharded = circuit.compile_state_probs(seed=0, mesh=mesh)
+    plain = circuit.compile_state_probs(seed=0, device=first, mesh=None)
+    for sp in (sharded, plain):
+        sp.probability_of(states[0], batch_size=1024)  # warm-up
+    synchronize(mesh)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    probs = [sharded.probability_of(s, batch_size=MAIN_BATCH) for s in states]
+    wall = time.perf_counter() - t0
+    per_device = device_launches()
+    worst = 0.0
+    for i, (s, p) in enumerate(zip(states, probs)):
+        q = plain.probability_of(s, batch_size=MAIN_BATCH)
+        err = np.abs(p - q)
+        worst = max(worst, float((err / np.maximum(q, 1e-30)).max()))
+        if p.shape != (MAIN_BATCH,) or not (err <= 1e-6 * q).all():
+            fail(f"sharded state probs: state {i}: values differ from the unsharded estimator's beyond rtol 1e-6")
+    print(f"sharded state probs: {len(states)} calls of {MAIN_BATCH} rows in {wall:.3f} s = "
+          f"{len(states) / wall:.2f} calls/s; max rel err against unsharded {worst:.3e} (rtol 1e-6); "
+          f"launches per device {per_device}", flush=True)
+    for device in shards_on:
+        if not all(per_device.get(device, {}).get(k, 0) for k in ("exact_small", "approx_wide")):
+            fail(f"sharded state probs: {device} did not launch exact_small and approx_wide")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs only on a CUDA GPU")
@@ -1426,6 +1603,7 @@ def main() -> None:
     )
 
     check_means("slice", out, exported)
+    main_means, main_rate = out.mean(axis=0, dtype=np.float64), MAIN_SHOTS / wall
     del sampler, out
     torch.cuda.empty_cache()
 
@@ -1500,7 +1678,7 @@ def main() -> None:
     f32_paths.append(small_batch_path(circuit))
 
     # ---- phase 17: host synchronisations of the batch loop ---------------
-    sync_phase(circuit)
+    sync_phase(circuit.compile_detector_sampler(seed=1, device=DEVICE))
 
     # ---- phase 18: checkpointing -----------------------------------------
     checkpoint_phase(circuit)
@@ -1518,6 +1696,9 @@ def main() -> None:
     # ---- phase 22: m2d and the statevector oracle ------------------------
     oracle_launches = m2d_and_oracle_phase()
     exact_launches = {k: exact_launches[k] + oracle_launches.get(k, 0) for k in exact_launches}
+
+    # ---- phase 23: the sharded path ---------------------------------------
+    sharded_phase(circuit, cultivation, random_outputs, main_means, launches, main_rate)
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

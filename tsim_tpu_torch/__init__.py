@@ -8,7 +8,8 @@ dataclasses. The samplers and state probabilities run on a torch device;
 on an NVIDIA Hopper card the f32 sampling evaluator and the exact evaluator
 run as hand-written CUDA kernels; a Clifford circuit's fully-direct
 program is drawn on the host by the C++ Pauli-frame engine, as in
-``tsim_tpu``. Circuits also give their detector error model, m2d converter
+``tsim_tpu``. ``mesh=`` splits the shots over several cards
+(``parallel/shard.py``). Circuits also give their detector error model, m2d converter
 and diagrams. Programs can also come as data (``program_io``,
 ``models/exported.py``). It imports torch and numpy, never JAX.
 """

@@ -5,8 +5,9 @@ The tsim-compatible entry point (reference ``tsim/circuit.py``, copied from
 shorthand (T, TPP, R_X/Y/Z, U3, R_PAULI, R_XX/YY/ZZ, CCZ, CCX) and compile
 on the host into measurement/detector samplers and state probabilities
 that run on a torch device, and into its detector error model,
-measurement-to-detection converter and diagrams. ``mesh=`` (multi-GPU) is
-not ported yet.
+measurement-to-detection converter and diagrams. ``mesh=`` shards the
+shots over several devices (``parallel/shard.py``): by default ("auto")
+over every card when more than one is visible and no ``device`` is given.
 """
 
 from __future__ import annotations
@@ -375,28 +376,29 @@ class Circuit:
     # ------------------------------------------------------------ compilation
     def compile_sampler(
         self, *, strategy: str = "cat5", seed: int | None = None, device=None,
-        evaluation: str = "f32", per_term: bool | None = None,
+        evaluation: str = "f32", per_term: bool | None = None, mesh="auto",
     ) -> "CompiledMeasurementSampler":
         """Compile on the host and sample measurements on ``device`` (the
-        card when None; ``device="cpu"`` runs the kernels' plain versions)."""
+        card when None; ``device="cpu"`` runs the kernels' plain versions),
+        or over ``mesh`` (``sampler._resolve_mesh``)."""
         from .sampler import CompiledMeasurementSampler
 
         return CompiledMeasurementSampler(
             self, seed=seed, strategy=strategy, device=device, evaluation=evaluation,
-            per_term=per_term,
+            per_term=per_term, mesh=mesh,
         )
 
     def compile_detector_sampler(
         self, *, strategy: str = "cat5", seed: int | None = None, device=None,
-        evaluation: str = "f32", per_term: bool | None = None,
+        evaluation: str = "f32", per_term: bool | None = None, mesh="auto",
     ) -> "CompiledDetectorSampler":
         """Compile on the host and sample detectors and observables on
-        ``device``, as :meth:`compile_sampler`."""
+        ``device`` or over ``mesh``, as :meth:`compile_sampler`."""
         from .sampler import CompiledDetectorSampler
 
         return CompiledDetectorSampler(
             self, seed=seed, strategy=strategy, device=device, evaluation=evaluation,
-            per_term=per_term,
+            per_term=per_term, mesh=mesh,
         )
 
     def compile_state_probs(
@@ -406,12 +408,13 @@ class Circuit:
         strategy: str = "cat5",
         seed: int | None = None,
         device=None,
+        mesh="auto",
     ) -> "CompiledStateProbs":
         from .sampler import CompiledStateProbs
 
         return CompiledStateProbs(
             self, sample_detectors=sample_detectors, strategy=strategy, seed=seed,
-            device=device,
+            device=device, mesh=mesh,
         )
 
     def detector_error_model(

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels import sample_eval as _kernel
+from ..parallel.shard import indexed_device
 from ..program_io import (
     CompiledScalarGraphs,
     HalfPiPhases,
@@ -312,8 +313,9 @@ def self_test(device) -> dict:
 
 
 def ensure_self_test(device) -> None:
-    """Run the self-test once per device and process; re-raise its failure."""
-    key = str(torch.device(device))
+    """Run the self-test once per device and process ("cuda" and the card it
+    names are one device); re-raise its failure."""
+    key = str(indexed_device(device))
     if key not in _self_tested:
         try:
             self_test(device)

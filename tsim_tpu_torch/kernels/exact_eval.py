@@ -30,13 +30,16 @@ KERNELS = ("exact_wide", "approx_wide", "exact_small", "approx_small")
 # every stage (K6's own code).
 APPROX_ABLATION_VARIANTS = ("empty", "par-all", "full")
 
-# Launches per kernel, counted where each launch succeeds.
+# Launches per kernel, counted where each launch succeeds, and the same per
+# device ({"cuda:0": {name: launches}}).
 launch_counts = {name: 0 for name in (*KERNELS, "approx_ablate")}
+device_launch_counts: dict[str, dict[str, int]] = {}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launch_counts.clear()
 
 
 def graph_tile(num_graphs: int) -> int:
@@ -79,6 +82,7 @@ def _launch(name: str, err: int, lib, tables) -> None:
             f"parameters: cudaError {err}: {msg}"
         )
     launch_counts[name] += 1
+    device_launch_counts.setdefault(str(tables.flat.device), dict.fromkeys(launch_counts, 0))[name] += 1
 
 
 def exact_partials(tables, x: torch.Tensor):

@@ -51,13 +51,17 @@ ABLATION_VARIANTS = (
     ("full", (1, 2, 3, 4), (1, 2, 3, 4)),
 )
 
-# Launches per kernel, counted where each launch succeeds.
+# Launches per kernel, counted where each launch succeeds, and the same per
+# device ({"cuda:0": {name: launches}}; a sharded sampler's kernels run on
+# every device of its mesh).
 launch_counts = {name: 0 for name in (*CONFIGURATIONS, "wide_32", "self_test", "ablate")}
+device_launch_counts: dict[str, dict[str, int]] = {}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launch_counts.clear()
 
 
 def layout(num_graphs: int) -> str:
@@ -135,6 +139,7 @@ def _call(entry: str, code: int, tables, x: torch.Tensor, count_as: str, *extra:
             f"{tables.n_params} parameters: cudaError {err}: {msg}"
         )
     launch_counts[count_as] += 1
+    device_launch_counts.setdefault(str(x.device), dict.fromkeys(launch_counts, 0))[count_as] += 1
     return out
 
 

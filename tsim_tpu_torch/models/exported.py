@@ -49,14 +49,17 @@ class ExportedCircuit:
 
     def compile_detector_sampler(
         self, *, seed: int | None = None, device=None, evaluation: str = "f32",
-        per_term: bool | None = None,
+        per_term: bool | None = None, mesh="auto",
     ) -> CompiledDetectorSampler:
         return CompiledDetectorSampler(
-            self.load(), seed=seed, device=device, evaluation=evaluation, per_term=per_term
+            self.load(), seed=seed, device=device, evaluation=evaluation, per_term=per_term,
+            mesh=mesh,
         )
 
-    def compile_state_probs(self, *, seed: int | None = None, device=None) -> CompiledStateProbs:
-        return CompiledStateProbs(self.load_state_probs(), seed=seed, device=device)
+    def compile_state_probs(
+        self, *, seed: int | None = None, device=None, mesh="auto"
+    ) -> CompiledStateProbs:
+        return CompiledStateProbs(self.load_state_probs(), seed=seed, device=device, mesh=mesh)
 
 
 def distillation_d3(p: float = 0.05) -> ExportedCircuit:

@@ -17,15 +17,19 @@ C++ Pauli-frame engine (``stim_core/native_frame.py``) on a CUDA device, or
 by the seeded host ``ChannelSampler`` (``direct_route`` names which).
 :class:`CompiledStateProbs` evaluates joint-mode programs exactly. Every
 sampler saves and loads a checkpoint that continues its sample stream.
+With a mesh (``mesh=``, ``parallel/shard.py``) the shots of each batch are
+split over the mesh's devices, each shard with its own generator, tables
+and copy stream; one host thread enqueues every shard's work.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 import warnings
-from dataclasses import fields
+from dataclasses import dataclass, fields
 from math import ceil
 
 import numpy as np
@@ -44,6 +48,14 @@ from .core.graph_prep import prepare_graph
 from .noise.channels import Channel, ChannelSampler
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
+from .parallel.shard import (
+    ShotMesh,
+    indexed_device,
+    make_shot_mesh,
+    replicate,
+    shard_generators,
+    shard_sizes,
+)
 from .program_io import (
     ExportedProgram,
     NoiseModel,
@@ -390,14 +402,173 @@ def _check_norm_deviation(max_dev: float, evaluation: str = "f32") -> None:
 
 
 def _resolve_device(device) -> torch.device:
-    """``device``, or "cuda" for None; a CUDA device must exist (no fallback)."""
+    """``device``, or "cuda" for None, with its index ("cuda" names the
+    current card); a CUDA device must exist (no fallback)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the sampler runs on the card; pass "
             'device="cpu" to run on the CPU with the plain versions of the kernels'
         )
-    return device
+    return indexed_device(device)
+
+
+def _resolve_mesh(mesh, device) -> tuple[ShotMesh | None, torch.device]:
+    """(the sampling mesh or None, the sampler's device) of the ``mesh`` and
+    ``device`` arguments, as ``tsim_tpu/sampler.py::_resolve_mesh`` reads
+    ``mesh``.
+
+    None samples unsharded. "auto" shards over every CUDA device when
+    ``device`` is None and more than one card is visible, else samples
+    unsharded (on the CPU, on one card, with an explicit ``device``). A
+    :class:`ShotMesh` of one entry samples unsharded on its device; a larger
+    one is used as given. A mesh's first device is the sampler's device: an
+    explicit ``device`` that is another one raises. Sharded and unsharded
+    samplers draw different (each seeded and reproducible) streams.
+    """
+    if mesh is None:
+        return None, _resolve_device(device)
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f'mesh must be None, "auto" or a ShotMesh, got {mesh!r}')
+        if device is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+            mesh = make_shot_mesh()
+            return mesh, mesh.devices[0]
+        return None, _resolve_device(device)
+    if not isinstance(mesh, ShotMesh):
+        raise TypeError(f'mesh must be None, "auto" or a ShotMesh, got {type(mesh).__name__}')
+    first = mesh.devices[0]
+    if device is not None and indexed_device(device) != first:
+        raise ValueError(
+            f"device {device} is not the mesh's first device {first}: a sharded sampler "
+            "lives on its mesh's first device"
+        )
+    return (mesh if mesh.size > 1 else None), first
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current card (nothing for the CPU),
+    so that every tensor a shard's work allocates lands on its device."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+@dataclass
+class _Shard:
+    """One mesh entry of a sampler: its device, generator, tables and noise
+    sampler (the last two shared by the entries of one device). An
+    unsharded sampler has one, with its own generator."""
+
+    device: torch.device
+    generator: torch.Generator
+    tables: ProgramTables
+    channels: DeviceChannelSampler
+
+
+def _worst(deviations) -> float:
+    """The host's max of (device, (1,) deviation) pairs: one read a device."""
+    merged = {}
+    for device, dev in deviations:
+        merged[device] = dev if device not in merged else torch.maximum(merged[device], dev)
+    return max(float(d[0]) for d in merged.values())
+
+
+class _PostselectedShard:
+    """One shard's share of a postselected call: ``shots`` shots whose rows
+    start at ``first`` in the host array ``result``, drawn on the shard's
+    device in chunks of ``chunk`` shots.
+
+    Each chunk draws its noise, its direct bits and the prefilter over the
+    masked direct detectors (``post``, after the detector reference fold)
+    on the device (:meth:`draw`, which returns the survivor count still on
+    the device). Its rows start as the direct detector columns, false
+    elsewhere; once the host has read the count (:meth:`take`) its
+    survivors join a pool, which is evaluated in batches of ``chunk`` (the
+    last one shorter), and each evaluated survivor's row is scattered into
+    its chunk's rows. Discarded shots never reach an evaluator. A chunk
+    whose survivors are all evaluated goes to the host through
+    :class:`_RowsToHost`; chunks wait on the device until then.
+    """
+
+    def __init__(self, shard: _Shard, result, first: int, shots: int, chunk: int, nd: int,
+                 post, fold_kept, fold_dropped):
+        device = shard.device
+
+        def on(a):
+            return torch.as_tensor(np.asarray(a, np.uint8), device=device)
+
+        self.shard, self.first, self.shots, self.chunk, self.nd = shard, first, shots, chunk, nd
+        self.n_out = result.shape[1]
+        self.post = on(post).bool()
+        self.masked_ref = on(fold_kept[:nd]).bool() & self.post
+        self.fold_kept, self.fold_dropped = on(fold_kept), on(fold_dropped[:nd])
+        self.to_host = _RowsToHost(result, device, min(chunk, shots))
+        self.worst = torch.zeros((1,), dtype=torch.float32, device=device)
+        self.chunks = collections.deque()  # [first row, rows (want, n_out) uint8, survivors not yet evaluated]
+        self.pool = collections.deque()  # [noise rows, their rows in their chunk, the chunk], oldest first
+        self.pooled = self.taken = 0
+        self.drawn = None
+
+    @property
+    def done(self) -> bool:
+        return self.taken == self.shots
+
+    def draw(self) -> torch.Tensor:
+        """Enqueue the next chunk's noise, direct bits and prefilter; its
+        survivor count, on the device."""
+        want = min(self.chunk, self.shots - self.taken)
+        shard, nd = self.shard, self.nd
+        with on_device(shard.device):
+            f_params = shard.channels.sample(shard.generator, want)
+            direct = shard.tables.direct_outputs(f_params)[:, :nd]
+            keep = ~((direct.bool() & self.post) ^ self.masked_ref).any(dim=1)
+            rows = torch.zeros((want, self.n_out), dtype=torch.uint8, device=shard.device)
+            rows[:, :nd] = direct ^ self.fold_dropped
+            self.drawn = (f_params, keep, rows, want)
+            return keep.sum()
+
+    def take(self, survivors: int) -> None:
+        """Pool the drawn chunk's ``survivors``, evaluate every full batch of
+        the pool (and the rest after the last chunk), push finished chunks."""
+        f_params, keep, rows, want = self.drawn
+        with on_device(self.shard.device):
+            chunk = [self.first + self.taken, rows, survivors]
+            self.chunks.append(chunk)
+            if survivors:
+                kept = _kept_rows(keep, survivors)
+                self.pool.append([f_params.index_select(0, kept), kept, chunk])
+            self.pooled += survivors
+            self.taken += want
+            while self.pooled >= self.chunk or (self.done and self.pooled):
+                self._evaluate(min(self.chunk, self.pooled))
+            while self.chunks and self.chunks[0][2] == 0:
+                start, rows, _ = self.chunks.popleft()
+                self.to_host.push(rows, start)
+
+    def _evaluate(self, n: int) -> None:
+        parts, got = [], 0
+        while got < n:
+            f, rows, chunk = self.pool[0]
+            k = min(n - got, f.shape[0])
+            parts.append((f[:k], rows[:k], chunk))
+            if k == f.shape[0]:
+                self.pool.popleft()
+            else:
+                self.pool[0] = [f[k:], rows[k:], chunk]
+            got += k
+        out, dev = sample_program_with_deviation(
+            self.shard.tables, torch.cat([f for f, _, _ in parts]), self.shard.generator
+        )
+        out = out ^ self.fold_kept
+        self.worst = torch.maximum(self.worst, dev)
+        at = 0
+        for f, rows, chunk in parts:
+            chunk[1].index_copy_(0, rows, out[at : at + f.shape[0]])
+            chunk[2] -= f.shape[0]
+            at += f.shape[0]
+        self.pooled -= n
+
+    def close(self) -> None:
+        self.to_host.close()
 
 
 class _CompiledSamplerBase:
@@ -412,7 +583,9 @@ class _CompiledSamplerBase:
     rung; the norm monitor's band narrows from 3e-3 to 1e-5). ``per_term``
     True runs every f32 rung through the per-term kernels (the slower
     oracle of the packed ones), False through the packed ones where its rows
-    fit; None follows ``TSIM_TPU_SAMPLE_TPACK`` as tsim_tpu does.
+    fit; None follows ``TSIM_TPU_SAMPLE_TPACK`` as tsim_tpu does. ``mesh``
+    ("auto", None or a :class:`~tsim_tpu_torch.parallel.shard.ShotMesh`,
+    read by :func:`_resolve_mesh`) splits the shots over devices.
     """
 
     _sample_detectors = False
@@ -420,10 +593,16 @@ class _CompiledSamplerBase:
 
     def __init__(
         self, source, *, seed: int | None = None, device=None, evaluation: str = "f32",
-        per_term: bool | None = None, strategy: str = "cat5",
+        per_term: bool | None = None, strategy: str = "cat5", mesh="auto",
     ):
         self.evaluation = check_evaluation(evaluation)
-        self.device = _resolve_device(device)
+        self._mesh, self.device = _resolve_mesh(mesh, device)
+        # What save() records: "auto" where the automatic rule chose the
+        # mesh, the device list of an explicit mesh, else None.
+        self._mesh_spec = (
+            "auto" if mesh == "auto" and device is None
+            else None if self._mesh is None else [str(d) for d in self._mesh.devices]
+        )
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**30))
         if isinstance(source, ExportedProgram):
@@ -472,6 +651,19 @@ class _CompiledSamplerBase:
             self._native_frame_seed = int(np.random.default_rng(seed + 1).integers(0, 2**30))
         self._tables = ProgramTables(prog, evaluation, per_term).to(self.device)
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
+        devices = (self.device,) if self._mesh is None else self._mesh.distinct
+        self._replicas = replicate(self._tables, devices)
+        if self._mesh is None:
+            self._shards = [_Shard(self.device, self._generator, self._tables, self._device_channels)]
+        else:
+            channels = {
+                d: self._device_channels if d == self.device else DeviceChannelSampler(exported.noise, d)
+                for d in devices
+            }
+            self._shards = [
+                _Shard(d, g, self._replicas[d], channels[d])
+                for d, g in zip(self._mesh.devices, shard_generators(seed, self._mesh))
+            ]
         self._reference_seed = seed
         self._reference: np.ndarray | None = None
         # Largest normalization deviation of the last sample() call (the
@@ -589,28 +781,36 @@ class _CompiledSamplerBase:
     def save(self, path) -> None:
         """Checkpoint the sampler as one ``.npz`` (no pickle): the program,
         noise model and detector count as ``program_io`` writes them, then
-        the class, seed, device type and options, the circuit's text, the
-        generator's state and, for a fully-direct program, the host
-        ``ChannelSampler``'s. :meth:`load` rebuilds the tables and continues
-        the same sample stream; the native frame engine restarts from its
-        seed, as tsim_tpu's does after a load."""
+        the class, seed, device type, mesh and options, the circuit's text,
+        the generator's state, each shard generator's state and, for a
+        fully-direct program, the host ``ChannelSampler``'s. :meth:`load`
+        rebuilds the tables and continues the same sample stream; the
+        native frame engine restarts from its seed, as tsim_tpu's does after
+        a load. The mesh is recorded as "auto" where the automatic rule
+        chose it (it is resolved again on load, as in tsim_tpu), as its
+        device list where it was given."""
         exported = ExportedProgram(program=self._program, noise=self._noise, num_detectors=self._num_detectors)
         arrays, header = flatten(exported)
         header["checkpoint"] = {
             "class": type(self).__name__, "seed": self._reference_seed,
-            "device": self.device.type, "options": self._options(),
+            "device": self.device.type, "mesh": self._mesh_spec, "options": self._options(),
             "circuit": None if self.circuit is None else str(self.circuit),
             "channel_state": None if self._channel_sampler is None
             else self._channel_sampler._rng.bit_generator.state,
         }
         arrays["checkpoint.generator_state"] = self._generator.get_state().numpy()
+        if self._mesh is not None:
+            for i, shard in enumerate(self._shards):
+                arrays[f"checkpoint.shard_generator_state.{i}"] = shard.generator.get_state().numpy()
         write_npz(path, arrays, header)
 
     @classmethod
     def load(cls, path):
         """Restore a sampler written by :meth:`save` onto the device type it
-        was saved from (a CUDA checkpoint raises without a card); a
-        checkpoint of another class raises TypeError."""
+        was saved from (a CUDA checkpoint raises without a card) or onto its
+        mesh (a saved device that is missing raises, naming it; an "auto"
+        mesh that resolves to another number of shards starts its shards
+        from their seeds); a checkpoint of another class raises TypeError."""
         arrays, header = read_npz(path)
         saved = header.pop("checkpoint", None)
         if saved is None:
@@ -618,8 +818,17 @@ class _CompiledSamplerBase:
         if saved["class"] != cls.__name__:
             raise TypeError(f"checkpoint holds {saved['class']}, not {cls.__name__}")
         state = torch.from_numpy(arrays.pop("checkpoint.generator_state"))
-        obj = cls(unflatten(arrays, header), seed=saved["seed"], device=saved["device"], **saved["options"])
+        shard_states = [arrays.pop(f"checkpoint.shard_generator_state.{i}") for i in range(
+            sum(k.startswith("checkpoint.shard_generator_state.") for k in arrays))]
+        mesh = saved.get("mesh")
+        device = saved["device"] if mesh is None else None
+        if isinstance(mesh, list):
+            mesh = ShotMesh(mesh)
+        obj = cls(unflatten(arrays, header), seed=saved["seed"], device=device, mesh=mesh, **saved["options"])
         obj._generator.set_state(state)
+        if obj._mesh is not None and len(shard_states) == obj._mesh.size:
+            for shard, shard_state in zip(obj._shards, shard_states):
+                shard.generator.set_state(torch.from_numpy(shard_state))
         if saved.get("circuit") is not None:
             from .circuit import Circuit
 
@@ -642,11 +851,17 @@ class _CompiledSamplerBase:
         return max(peak, 1)
 
     def _estimate_batch_size(self) -> int:
-        if self.device.type == "cuda":
-            available, _total = torch.cuda.mem_get_info(self.device)
-        else:
-            available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-        return max(1, int(available * 0.5) // self._peak_bytes_per_sample())
+        """Half of the free memory of each device over its shards' peak bytes
+        a shot; the least of them times the shards."""
+        shards_on = collections.Counter(s.device for s in self._shards)
+        rows = []
+        for device, k in shards_on.items():
+            if device.type == "cuda":
+                available, _total = torch.cuda.mem_get_info(device)
+            else:
+                available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+            rows.append(int(available * 0.5) // self._peak_bytes_per_sample() // k)
+        return max(1, min(rows) * len(self._shards))
 
     @staticmethod
     def _validate_shot_args(shots: int, batch_size: int | None) -> None:
@@ -682,9 +897,11 @@ class _CompiledSamplerBase:
 
     def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None) -> np.ndarray:
         """(shots, num_outputs) bool samples; ``fold``, a (num_outputs,) bool
-        row, is XORed into every row on the device (the reference folds). A
-        fully-direct program is drawn on the host in one go (``batch_size``
-        unused) and folded there."""
+        row, is XORed into every row on the device (the reference folds).
+        Each batch is split over the shards (one when unsharded) as
+        ``tensor_split`` cuts it, each shard's rows contiguous in the result.
+        A fully-direct program is drawn on the host in one go
+        (``batch_size`` unused) and folded there."""
         self._validate_shot_args(shots, batch_size)
         num_outputs = self._program.num_outputs
         if shots == 0:
@@ -697,29 +914,44 @@ class _CompiledSamplerBase:
         batch_size = self._resolve_batch_size(shots, batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
-        max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
-        to_host = _RowsToHost(result, self.device, min(batch_size, shots))
-        fold = None if fold is None else torch.as_tensor(np.asarray(fold, np.uint8), device=self.device)
+        shards = self._shards
+        rows = ceil(min(batch_size, shots) / len(shards))
+        to_host = [_RowsToHost(result, s.device, rows) for s in shards]
+        folds = {s.device: None if fold is None else torch.as_tensor(np.asarray(fold, np.uint8), device=s.device)
+                 for s in shards}
+        deviations = []
         for start in range(0, shots, batch_size):
-            out, dev = self._sample_batch(min(batch_size, shots - start))
-            max_dev = torch.maximum(max_dev, dev)
-            to_host.push(out if fold is None else out ^ fold, start)
-        to_host.close()
-        self.last_norm_deviation = float(max_dev[0])
+            sizes = shard_sizes(min(batch_size, shots - start), len(shards))
+            # Every shard's noise and ladder are enqueued before any copy.
+            batches = [self._sample_batch(n, shard=s) if n else None for s, n in zip(shards, sizes)]
+            at = start
+            for shard, sink, n, batch in zip(shards, to_host, sizes, batches):
+                if n:
+                    out, dev = batch
+                    deviations.append((shard.device, dev))
+                    fold_d = folds[shard.device]
+                    with on_device(shard.device):
+                        sink.push(out if fold_d is None else out ^ fold_d, at)
+                at += n
+        for sink in to_host:
+            sink.close()
+        self.last_norm_deviation = _worst(deviations)
         _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
 
-    def _sample_batch(self, shots: int, stage=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """Enqueue one batch's noise draw and ladder: ((shots, num_outputs)
-        uint8 bits, (1,) max norm deviation), both on the device.
-        ``stage(name)``, if given, is called as each ends, with "noise" or
-        "ladder" (a profiler's hook; "d2h" and "host" are
-        :class:`_RowsToHost`'s push and close)."""
+    def _sample_batch(self, shots: int, stage=None, shard: _Shard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Enqueue one batch's noise draw and ladder on ``shard`` (the first
+        one by default): ((shots, num_outputs) uint8 bits, (1,) max norm
+        deviation), both on its device. ``stage(name)``, if given, is called
+        as each ends, with "noise" or "ladder" (a profiler's hook; "d2h" and
+        "host" are :class:`_RowsToHost`'s push and close)."""
+        shard = shard or self._shards[0]
         mark = stage or (lambda name: None)
-        f_params = self._device_channels.sample(self._generator, shots)
-        mark("noise")
-        out, dev = sample_program_with_deviation(self._tables, f_params, self._generator)
-        mark("ladder")
+        with on_device(shard.device):
+            f_params = shard.channels.sample(shard.generator, shots)
+            mark("noise")
+            out, dev = sample_program_with_deviation(shard.tables, f_params, shard.generator)
+            mark("ladder")
         return out, dev
 
     def _sample_batches_with_postselection(
@@ -734,21 +966,17 @@ class _CompiledSamplerBase:
         """Postselected sampling: (shots, num_outputs) bool samples.
 
         Counterpart of tsim_tpu's ``_sample_batches_with_postselection``,
-        kept on the device: each chunk of ``batch_size`` shots draws its
-        noise, its direct bits and the prefilter over the masked direct
-        detectors there (after the detector reference fold, when asked).
-        Its rows start as the direct detector columns, false elsewhere; its
-        survivors join a pool, which is evaluated in batches of
-        ``batch_size`` (the last one shorter), and each evaluated survivor's
-        row is scattered into its chunk's rows. Discarded shots never reach
-        an evaluator. A chunk whose survivors are all evaluated goes to the
-        host through :class:`_RowsToHost`; chunks wait on the device until
-        then. The host reads each chunk's survivor count once, since it sets
-        the pool's batches. The reference folds are tsim_tpu's, made on the
-        device: a survivor's row takes the detector reference (when
-        ``fold_detector_reference``) and the observable reference (when
-        ``fold_observable_reference``); a discarded row takes the detector
-        reference on its direct detectors only.
+        kept on the device: each shard takes a contiguous share of the shots
+        (all of them when unsharded) and runs :class:`_PostselectedShard`'s
+        loop of chunks, prefilter, survivor pool and scatter on its device,
+        in chunks of ``batch_size`` split over the shards. Each round
+        enqueues every shard's next chunk before the first survivor count is
+        read, so no device waits on another's host read. The reference folds
+        are tsim_tpu's, made on the device: a survivor's row takes the
+        detector reference (when ``fold_detector_reference``) and the
+        observable reference (when ``fold_observable_reference``); a
+        discarded row takes the detector reference on its direct detectors
+        only.
         """
         self._validate_shot_args(shots, batch_size)
         n_out, nd = self._program.num_outputs, self._num_detectors
@@ -763,68 +991,24 @@ class _CompiledSamplerBase:
                 fold_dropped[:nd] = reference[:nd] & self._direct_detector_mask
             if fold_observable_reference:
                 fold_kept[nd:] = reference[nd:]
-
-        def on_device(a):
-            return torch.as_tensor(np.asarray(a, np.uint8), device=self.device)
-
-        post = on_device(postselection_mask & self._direct_detector_mask).bool()
-        masked_ref = on_device(fold_kept[:nd]).bool() & post
-        fold_kept, fold_dropped = on_device(fold_kept), on_device(fold_dropped[:nd])
+        post = postselection_mask & self._direct_detector_mask
 
         result = np.empty((shots, n_out), dtype=np.bool_)
-        max_dev = torch.zeros((1,), dtype=torch.float32, device=self.device)
-        to_host = _RowsToHost(result, self.device, min(batch_size, shots))
-        chunks = collections.deque()  # [first row, rows (want, n_out) uint8, survivors not yet evaluated]
-        pool = collections.deque()  # [noise rows, their rows in their chunk, the chunk], oldest first
-        pooled = 0
-
-        def evaluate(n: int) -> None:
-            nonlocal max_dev, pooled
-            parts, got = [], 0
-            while got < n:
-                f, rows, chunk = pool[0]
-                k = min(n - got, f.shape[0])
-                parts.append((f[:k], rows[:k], chunk))
-                if k == f.shape[0]:
-                    pool.popleft()
-                else:
-                    pool[0] = [f[k:], rows[k:], chunk]
-                got += k
-            out, dev = sample_program_with_deviation(
-                self._tables, torch.cat([f for f, _, _ in parts]), self._generator
-            )
-            out = out ^ fold_kept
-            max_dev = torch.maximum(max_dev, dev)
-            at = 0
-            for f, rows, chunk in parts:
-                chunk[1].index_copy_(0, rows, out[at : at + f.shape[0]])
-                chunk[2] -= f.shape[0]
-                at += f.shape[0]
-            pooled -= n
-
-        taken = 0
-        while taken < shots:
-            want = min(batch_size, shots - taken)
-            f_params = self._device_channels.sample(self._generator, want)
-            direct = self._tables.direct_outputs(f_params)[:, :nd]
-            keep = ~((direct.bool() & post) ^ masked_ref).any(dim=1)
-            rows = torch.zeros((want, n_out), dtype=torch.uint8, device=self.device)
-            rows[:, :nd] = direct ^ fold_dropped
-            survivors = int(keep.sum())  # the chunk's one host read
-            chunk = [taken, rows, survivors]
-            chunks.append(chunk)
-            if survivors:
-                kept = _kept_rows(keep, survivors)
-                pool.append([f_params.index_select(0, kept), kept, chunk])
-            pooled += survivors
-            taken += want
-            while pooled >= batch_size or (taken == shots and pooled):
-                evaluate(min(batch_size, pooled))
-            while chunks and chunks[0][2] == 0:
-                first, rows, _ = chunks.popleft()
-                to_host.push(rows, first)
-        to_host.close()
-        self.last_norm_deviation = float(max_dev[0])
+        shards = self._shards
+        chunk = ceil(batch_size / len(shards))
+        runs, first = [], 0
+        for shard, n in zip(shards, shard_sizes(shots, len(shards))):
+            if n:
+                runs.append(_PostselectedShard(shard, result, first, n, chunk, nd, post, fold_kept, fold_dropped))
+            first += n
+        while not all(run.done for run in runs):
+            live = [run for run in runs if not run.done]
+            counts = [run.draw() for run in live]
+            for run, count in zip(live, counts):
+                run.take(int(count))  # the chunk's one host read
+        for run in runs:
+            run.close()
+        self.last_norm_deviation = _worst((run.shard.device, run.worst) for run in runs)
         _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
 
@@ -964,10 +1148,12 @@ class CompiledStateProbs(_CompiledSamplerBase):
 
     def __init__(
         self, source, *, sample_detectors: bool = False, strategy: str = "cat5",
-        seed: int | None = None, device=None,
+        seed: int | None = None, device=None, mesh="auto",
     ):
         self._sample_detectors = sample_detectors
-        super().__init__(source, seed=seed, device=device, evaluation="exact", strategy=strategy)
+        super().__init__(
+            source, seed=seed, device=device, evaluation="exact", strategy=strategy, mesh=mesh
+        )
         for comp in self._program.components:
             if len(comp.compiled_scalar_graphs) != 2:
                 raise ValueError(
@@ -979,7 +1165,12 @@ class CompiledStateProbs(_CompiledSamplerBase):
         return {}
 
     def probability_of(self, state: np.ndarray, *, batch_size: int) -> np.ndarray:
-        """P(state | f) for ``batch_size`` noise samples f: (batch_size,) float32."""
+        """P(state | f) for ``batch_size`` noise samples f: (batch_size,) float32.
+
+        The noise is drawn on the first device from this object's generator,
+        the stream an unsharded estimator draws; with a mesh its rows are
+        split over the mesh, evaluated where each shard lies and gathered,
+        so sharded and unsharded give the same values on the same seed."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
         expected = self._program.num_outputs
@@ -987,13 +1178,21 @@ class CompiledStateProbs(_CompiledSamplerBase):
         if state.shape != (expected,):
             raise ValueError(f"state must have shape ({expected},), got {state.shape}")
         f_samples = self._device_channels.sample(self._generator, batch_size)
-        return self._probability_body(f_samples, state).cpu().numpy()
+        if self._mesh is None:
+            return self._probability_body(f_samples, state).cpu().numpy()
+        parts = []
+        for device, f in zip(self._mesh.devices, torch.tensor_split(f_samples, self._mesh.size)):
+            if f.shape[0]:
+                with on_device(device):
+                    parts.append(self._probability_body(f.to(device), state, self._replicas[device]))
+        return np.concatenate([p.cpu().numpy() for p in parts])
 
-    def _probability_body(self, f_samples: torch.Tensor, state) -> torch.Tensor:
+    def _probability_body(self, f_samples: torch.Tensor, state, tables: ProgramTables | None = None) -> torch.Tensor:
         """P(state | f) per row of (B, num_f) uint8 ``f_samples``: the direct
         bits' agreement times, per component, |joint| / |norm| with the
-        component's state bits tiled behind its f-bits."""
-        tables = self._tables
+        component's state bits tiled behind its f-bits (``tables``: the
+        sampler's own by default, or a replica on ``f_samples``' device)."""
+        tables = self._tables if tables is None else tables
         batch = f_samples.shape[0]
         device = f_samples.device
         state = torch.as_tensor(np.asarray(state, np.uint8), device=device)
