@@ -57,6 +57,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    bit on every wide rung at 2^20 + 1 rows, and on cultivation's 307-graph
    and d3's first 103-graph rung also at 128 to 65,536 rows, each of those
    timed in device time (the sweep that chose the row count between them);
+   K3a at 4097 rows (its 32-shot block on rows of up to four words) equal to
+   K1 bit for bit on every wide rung, and timed beside K1's 32-shot block on
+   d3's first 103-graph rung;
 9. the start-up self-test of the f32 kernels (K4): its result, and its
    four launches and their plain versions timed, each call on the card
    alone (events queued behind a sleep, so host time stays out), and their
@@ -150,11 +153,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
     cultivation on the mesh (same bounds; survivors/s); phase 6's state
     probabilities on the mesh equal to the unsharded estimator of the same
     seed within rtol 1e-6 (calls/s). Its launches are printed per device,
-    on lines of their own, and are not added to the kernels line.
+    on lines of their own, and are not added to the kernels line;
+24. noisy grown cultivation, ``cultivation_d3_grown(p=0.001, checks=2)``
+    (12 rungs, up to 1084 graphs), compiled on this host (seconds and
+    stages printed; native planner) and sampled on the card with
+    ``compile_detector_sampler(seed=0, evaluation="exact")``: 2^20 shots
+    after a warm-up batch, norm deviation at most 1e-5 with any warning of
+    the norm monitor failing the run, K5 and K7a launched; then in f32 mode
+    (seed 1) 4 * 2^20 shots, norm deviation at most 3e-3, K1 and K2
+    launched, every output's mean within 4 * sqrt(2) pooled sigma of the
+    exact run's; then the 1084-graph rung alone at 2^20 + 1 rows: K5 equal
+    to the plain exact evaluator bit for bit and K1 within rtol 1e-5 of the
+    row's mass, each timed beside its bound.
 
 Phases 4, 7, 10, 12, 16, 20 and 23 sample through the pipelined batch loop
 (``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
-phases 4, 6, 7, 10 to 13, 16, 20, 21, 22 and 23 runs with the launch counts
+phases 4, 6, 7, 10 to 13, 16, 20 to 24 runs with the launch counts
 set to 0 just before it and read just after; a kernel of the path that was not
 launched fails the run (in phase 21, any kernel launched does). The line before the last is a JSON summary of the
 kernels, each with its least possible time on the card (``bound_ms``, see
@@ -221,6 +235,7 @@ WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' fou
 LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
 LONG_ROW_COUNT = (1 << 16) + 1
 DEVICE = "cuda"
+GROWN_SHOTS = 4 * MAIN_BATCH  # phase 24: f32 shots of noisy grown cultivation
 
 # Peaks of one H100 SXM (NVIDIA's data sheet; 132 SMs at a boost clock of
 # 1.98 GHz): HBM at 3.35 TB/s; f32 at 67 TFLOP/s outside the tensor cores
@@ -671,7 +686,7 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
     ]
     rungs += [(f"seeded P={WIDE_PARAMS}", synthetic_rung(s, g, WIDE_PARAMS, (6, 4, 4, 2)))
               for s, g in ((11, 40), (12, 8))]
-    max_abs = dict.fromkeys((*kernel.CONFIGURATIONS, "wide_32"), 0.0)
+    max_abs = dict.fromkeys((*kernel.CONFIGURATIONS, "wide_32", "per_term_wide_32"), 0.0)
     timing, swept = {}, set()
     for i, (label, c) in enumerate(rungs):
         t = SampleTables(c).to(dev)
@@ -711,6 +726,20 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
             if not same:
                 fail(f"{label} G={t.num_graphs}: wide's two instances add the same f32 values in the same order "
                      "and must agree bit for bit")
+            # K3a's own 32-shot block, which launches of fewer than
+            # WIDE_SMALL_ROWS rows take on rows of up to four words.
+            xs = x[: SMALL_BATCH + 1]
+            got = kernel.launch(t, xs, "per_term_wide")
+            if t.words <= kernel.PER_TERM_REGISTER_WORDS:
+                max_abs["per_term_wide_32"] = max(max_abs["per_term_wide_32"],
+                                                  float((got - want[: xs.shape[0]]).abs().max()))
+            same = torch.equal(got, outs["wide"][: xs.shape[0]])
+            print(f"{label} G={t.num_graphs}: per_term_wide at {xs.shape[0]} rows "
+                  f"({kernel.per_term_wide_groups(xs.shape[0], t.words) * 32} shots a block) equals wide bit for "
+                  f"bit: {same}", flush=True)
+            if not same:
+                fail(f"{label} G={t.num_graphs}: per_term_wide's blocks add the same f32 values in the same order "
+                     "as wide's and must agree bit for bit")
             del got
         del outs
         if (label, t.num_graphs) in SWEPT and (label, t.num_graphs) not in swept:
@@ -719,14 +748,18 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
         if (label, t.num_graphs) == ("d3", 103) and "wide_32" not in timing:
             xs = x[: SMALL_BATCH + 1]
             k1 = device_ms(lambda: kernel.launch(t, xs, "wide", _block_shots=32), reps=20)
+            q1 = device_ms(lambda: kernel.launch(t, xs, "per_term_wide"), reps=20)
             p1 = time_ms(lambda: sample_product_sum_reference(t, xs))
+            q2 = device_ms(lambda: kernel.launch(t, xs, "per_term_wide"), reps=20)
             k2 = device_ms(lambda: kernel.launch(t, xs, "wide", _block_shots=32), reps=20)
             p2 = time_ms(lambda: sample_product_sum_reference(t, xs))
             bound = f32_bound(c, 4 * t.flat.numel(), xs.shape[0])
-            timing["wide_32"] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, f"{label} G={t.num_graphs}, B={xs.shape[0]}")
-            print(f"time at B={xs.shape[0]} (phase 16's batch), {label} G={t.num_graphs} (wide, 32 shots a block): "
-                  f"bound {bound[0]:.6f} ms ({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms (device time), "
-                  f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
+            rung = f"{label} G={t.num_graphs}, B={xs.shape[0]}"
+            timing["wide_32"] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound, rung)
+            timing["per_term_wide_32"] = ((q1 + q2) / 2, (p1 + p2) / 2, *bound, rung)
+            print(f"time at B={xs.shape[0]} (phase 16's batch), {label} G={t.num_graphs}, 32 shots a block: "
+                  f"bound {bound[0]:.6f} ms ({bound[1]}), wide {k1:.4f} / {k2:.4f} ms, per_term_wide "
+                  f"{q1:.4f} / {q2:.4f} ms (device time), plain {p1:.4f} / {p2:.4f} ms", flush=True)
         if (label, t.num_graphs, t.n_params) == heaviest_small:
             a = device_ms(lambda: kernel.launch(t, x, "small"))
             b = device_ms(lambda: kernel.launch(t, x, "per_term_small"))
@@ -754,7 +787,7 @@ def per_term_phase(programs: dict, dev) -> tuple[dict, dict]:
                   f"plain {p1:.2f} / {p2:.2f} ms", flush=True)
         del t, x, want, mass, scale, norm
         torch.cuda.empty_cache()
-    if len(timing) != 5 or swept != SWEPT:
+    if len(timing) != 6 or swept != SWEPT:
         fail(f"no rung with the timed graph counts {sorted(timed)} or the swept ones {sorted(SWEPT)}")
     return max_abs, timing
 
@@ -781,7 +814,9 @@ def self_test_phase(dev) -> tuple[float, tuple]:
         k = device_ms(lambda: kernel.launch(t, x, c, count_as="self_test"))
         p = device_ms(lambda: sample_eval.sample_product_sum_reference(t, x))
         b = f32_bound(circuits[layout], 4 * t.flat.numel(), x.shape[0])
-        block = f", {kernel.wide_block_shots(x.shape[0])} shots a block" if c == "wide" else ""
+        shots = {"wide": kernel.wide_block_shots(x.shape[0]),
+                 "per_term_wide": 32 * kernel.per_term_wide_groups(x.shape[0], t.words)}.get(c)
+        block = f", {shots} shots a block" if shots else ""
         print(f"self-test launch {c} ({x.shape[0]} rows{block}): bound {b[0]:.6f} ms ({b[1]}), "
               f"kernel {k:.4f} ms, plain {p:.4f} ms (device time)", flush=True)
         ms, plain_ms, bound_ms = ms + k, plain_ms + p, bound_ms + b[0]
@@ -1498,6 +1533,108 @@ def sharded_phase(circuit, cultivation, random_outputs, unsharded_means, unshard
             fail(f"sharded state probs: {device} did not launch exact_small and approx_wide")
 
 
+def grown_phase(dev) -> tuple[dict, dict]:
+    """Phase 24: noisy 2-check grown cultivation (``cultivation_d3_grown(
+    p=0.001, checks=2)``, 12 rungs up to 1084 graphs), compiled on this host
+    and sampled on the card: exact mode, 2^20 shots after a warm-up batch
+    (norm deviation at most 1e-5, any warning of the norm monitor fails);
+    f32 mode, 4 * 2^20 shots (at most 3e-3; every output's mean within 4 *
+    sqrt(2) pooled sigma of the exact run's); then the 1084-graph rung alone
+    at 2^20 + 1 rows: K5 against the plain exact evaluator bit for bit, K1
+    against the f32 plain version within rtol 1e-5 of the row's mass, each
+    timed beside its bound. Returns (exact launches, f32 launches)."""
+    import warnings
+
+    from tsim_tpu_torch.compile.evaluate import evaluate_abs
+    from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
+    from tsim_tpu_torch.compile.exact_tables import ExactTables
+    from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference
+    from tsim_tpu_torch.compile.sample_tables import SampleTables
+    from tsim_tpu_torch.kernels import exact_eval as exact_kernel
+    from tsim_tpu_torch.kernels import sample_eval as kernel
+    from tsim_tpu_torch.models import cultivation_d3_grown
+
+    circuit = cultivation_d3_grown(p=0.001, checks=2)
+    t0 = time.perf_counter()
+    exact = circuit.compile_detector_sampler(seed=0, evaluation="exact")
+    took = time.perf_counter() - t0
+    rungs = exact._program.components[0].compiled_scalar_graphs
+    print(f"grown: compiled on this host ({host_cpu()}) in {took:.3f} s ({exact.compile_stats}); "
+          f"rungs G = {[c.num_graphs for c in rungs]}, P = {rungs[0].n_params} to {rungs[-1].n_params}",
+          flush=True)
+    if exact.compile_stats["planner"] != "native":
+        fail(f"grown: not planned by the native engine alone ({exact.compile_stats['planner']!r})")
+
+    def sample(sampler, shots, label):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            try:
+                out = sampler.sample(shots, batch_size=MAIN_BATCH)
+            except Warning as w:
+                fail(f"{label}: the norm monitor warned: {w}")
+        torch.cuda.synchronize()
+        return out
+
+    def all_counts():
+        return {**dict(kernel.launch_counts), **dict(exact_kernel.launch_counts)}
+
+    runs = {}
+    for mode, seed, shots, tol, kernels in (
+        ("exact", 0, MAIN_BATCH, EXACT_NORM_TOL, ["exact_wide", "exact_small"]),
+        ("f32", 1, GROWN_SHOTS, NORM_TOL, ["wide", "small"]),
+    ):
+        sampler = exact if mode == "exact" else circuit.compile_detector_sampler(seed=seed)
+        sample(sampler, MAIN_BATCH, f"grown {mode} warm-up")
+        kernel.reset_launch_counts()
+        exact_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sample(sampler, shots, f"grown {mode}")
+        wall = time.perf_counter() - t0
+        launches = all_counts()
+        check_launched(f"grown {mode}", launches, kernels)
+        dev_norm = sampler.last_norm_deviation
+        print(f"grown {mode}: shape {out.shape}; max norm deviation {dev_norm:.3e} (limit {tol}); {shots} "
+              f"shots in {wall:.3f} s = {shots / wall:.0f} shots/s (batch {MAIN_BATCH}); launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v), flush=True)
+        if not (math.isfinite(dev_norm) and dev_norm <= tol):
+            fail(f"grown {mode}: norm deviation above {tol}")
+        runs[mode] = (out.mean(axis=0, dtype=np.float64), shots, launches)
+        del sampler, out
+    check_z("grown f32", runs["f32"][0], runs["f32"][1], runs["exact"][0], runs["exact"][1], "the exact run")
+
+    c = rungs[-1]
+    x = rows(c.n_params, KERNEL_ROWS, seed=400, device=dev)
+    t = ExactTables(c).to(dev)
+    got = evaluate_abs_exact(t, x)
+    want, p = timed_once(lambda: evaluate_abs(t.circuit(), x))
+    if not torch.equal(got, want):
+        fail(f"grown G={c.num_graphs}: exact_wide differs from the plain exact evaluator "
+             f"({int((got != want).sum())} rows)")
+    k1 = time_ms(lambda: exact_kernel.exact_partials(t, x))
+    k2 = time_ms(lambda: exact_kernel.exact_partials(t, x))
+    bound = exact_bound(c, t, KERNEL_ROWS)
+    print(f"grown G={c.num_graphs} P={c.n_params}, B={KERNEL_ROWS}: exact_wide equal to the plain exact "
+          f"evaluator bit for bit; bound {bound[0]:.4f} ms ({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms, "
+          f"plain {p:.2f} ms", flush=True)
+    del t, got, want
+    t = SampleTables(c).to(dev)
+    got = kernel.launch(t, x, "wide")
+    want, mass = sample_product_sum_reference(t, x, with_mass=True)
+    err = (got - want).abs()
+    if not bool((err <= ATOL + RTOL * mass[:, None]).all()):
+        fail(f"grown G={c.num_graphs}: wide disagrees with the plain version beyond rtol {RTOL}")
+    k1 = device_ms(lambda: kernel.launch(t, x, "wide"))
+    p = time_ms(lambda: sample_product_sum_reference(t, x))
+    k2 = device_ms(lambda: kernel.launch(t, x, "wide"))
+    bound = f32_bound(c, 4 * t.flat.numel(), KERNEL_ROWS)
+    print(f"grown G={c.num_graphs} P={c.n_params}, B={KERNEL_ROWS}: wide within rtol {RTOL} of the row's mass "
+          f"(max {float((err / mass[:, None].clamp_min(1e-30)).max()):.3e}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}), kernel {k1:.4f} / {k2:.4f} ms (device time), plain {p:.2f} ms", flush=True)
+    del t, x, got, want, mass, err
+    torch.cuda.empty_cache()
+    return runs["exact"][2], runs["f32"][2]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs only on a CUDA GPU")
@@ -1700,6 +1837,11 @@ def main() -> None:
     # ---- phase 23: the sharded path ---------------------------------------
     sharded_phase(circuit, cultivation, random_outputs, main_means, launches, main_rate)
 
+    # ---- phase 24: noisy grown cultivation ---------------------------------
+    grown_exact, grown_f32 = grown_phase(dev)
+    exact_launches = {k: exact_launches[k] + grown_exact.get(k, 0) for k in exact_launches}
+    f32_launches = {k: f32_launches[k] + grown_f32.get(k, 0) for k in f32_launches}
+
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed
         if ms < bound_ms:
@@ -1718,6 +1860,9 @@ def main() -> None:
     ]
     entries.append(entry("sample_eval_wide_32", SOURCE, REPLACES["wide"], f32_launches["wide_32"],
                          per_term_err["wide_32"], per_term_timing["wide_32"]))
+    entries.append(entry("sample_eval_per_term_wide_32", SOURCE, PER_TERM_REPLACES["per_term_wide"],
+                         f32_launches["per_term_wide_32"], per_term_err["per_term_wide_32"],
+                         per_term_timing["per_term_wide_32"]))
     entries += [
         entry(f"sample_eval_{c}", SOURCE, PER_TERM_REPLACES[c], f32_launches[c], per_term_err[c],
               per_term_timing[c])

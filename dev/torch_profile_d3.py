@@ -6,7 +6,7 @@ whose ladder is eight launches of the small f32 kernel and one of the wide).
 
     python3 dev/torch_profile_d3.py [--batch 1048576] [--batches 4] [--out build/profile_d3]
                                     [--program d3|cultivation|cultivation1] [--evaluation f32|exact]
-                                    [--postselected]
+                                    [--postselected] [--mesh K]
 
 1. Stage split of one batch serialised, on the host clock, with
    ``torch.cuda.synchronize()`` after each stage: noise draw and ladder
@@ -20,6 +20,12 @@ whose ladder is eight launches of the small f32 kernel and one of the wide).
    time, beside their plain sum, which counts twice what the copy stream
    overlaps), and device time by kernel. The Chrome trace and the full table
    go under ``--out``.
+
+``--mesh K`` samples on a mesh of cards 0 .. K - 1, the batch split over
+them, and part 1 becomes the host's time by stage of a sharded batch, with
+no synchronisation in between (what one host thread spends enqueueing each
+shard's noise draw and ladder and pushing and moving its rows), summed over
+the shards, beside the same for one card.
 
 ``--postselected`` profiles postselected 2-check cultivation instead
 (``chip_smoke.py`` phase 10: the mask over all detectors, both reference
@@ -94,6 +100,35 @@ def stage_split(sampler, B: int, n: int) -> None:
     print(f"  {'sum':7s} {total:9.3f}  -> {B / total * 1e3:.0f} shots/s with every stage serialised")
 
 
+def host_split(sampler, B: int, n: int) -> None:
+    """Part 1 with a mesh: medians over ``n`` batches of the host's time in
+    each stage, summed over the shards, nothing synchronised in between (the
+    host's enqueue cost), through ``_sample_batches``' ``stage`` hook; then
+    the wall time of the batch to its last row on the host."""
+    import torch
+
+    stages = {k: [] for k in ("noise", "ladder", "push", "close", "wall")}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        spent = dict.fromkeys(stages, 0.0)
+        start = last = time.perf_counter()
+
+        def mark(name):
+            nonlocal last
+            now = time.perf_counter()
+            spent[name] += (now - last) * 1e3
+            last = now
+
+        sampler._sample_batches(B, B, stage=mark)
+        spent["wall"] = (time.perf_counter() - start) * 1e3
+        for k in stages:
+            stages[k].append(spent[k])
+    shards = len(sampler._plan_batches(B, B)[1])
+    print(f"host time by stage, batch {B} over {shards} shards, median of {n} (ms; no sync in between):")
+    for k, v in stages.items():
+        print(f"  {k:7s} {statistics.median(v):9.3f}")
+
+
 def main() -> None:
     import torch
 
@@ -106,6 +141,7 @@ def main() -> None:
     parser.add_argument("--program", choices=("d3", "cultivation", "cultivation1"), default="d3")
     parser.add_argument("--evaluation", choices=("f32", "exact"), default="f32")
     parser.add_argument("--postselected", action="store_true")
+    parser.add_argument("--mesh", type=int, default=0, help="cards 0 .. K - 1; 0: one card")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -124,7 +160,13 @@ def main() -> None:
         circuit = cultivation_d3(p=0.001, checks=1)
     else:
         circuit = distillation_d3(p=0.05)
-    sampler = circuit.compile_detector_sampler(seed=0, device="cuda", evaluation=args.evaluation)
+    if args.mesh:
+        from tsim_tpu_torch.parallel.shard import ShotMesh
+
+        mesh = ShotMesh([f"cuda:{i}" for i in range(args.mesh)])
+        sampler = circuit.compile_detector_sampler(seed=0, mesh=mesh, evaluation=args.evaluation)
+    else:
+        sampler = circuit.compile_detector_sampler(seed=0, device="cuda", evaluation=args.evaluation)
     kw = {}
     if args.postselected:
         kw = dict(
@@ -135,7 +177,11 @@ def main() -> None:
     sampler.sample(B, batch_size=B, **kw)  # warm-up: kernel build and first launches
     torch.cuda.synchronize()
 
-    if not args.postselected:
+    if args.mesh:
+        host_split(sampler, B, n)
+        host_split(circuit.compile_detector_sampler(seed=0, device="cuda:0", mesh=None,
+                                                    evaluation=args.evaluation), B, n)
+    elif not args.postselected:
         stage_split(sampler, B, n)
 
     torch.cuda.synchronize()

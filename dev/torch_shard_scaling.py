@@ -2,6 +2,7 @@
 number of cards of a shot mesh, on the cards of this machine.
 
     python3 dev/torch_shard_scaling.py [--calls 3] [--batches 8] [--out build/shard_scaling.json]
+    python3 dev/torch_shard_scaling.py --threshold [--calls 3] [--batches 4]
 
 For each mesh, ``distillation_d3(p=0.05).compile_detector_sampler(seed=0,
 mesh=mesh)`` samples after one warm-up call, ``--calls`` times, with
@@ -16,7 +17,22 @@ The meshes: unsharded on card 0 (``mesh=None``), two replicas of card 0,
 and cards 0 .. k - 1 for every k from 2 to the number of cards. Prints one
 JSON line per mesh and way (median and best shots/s over the calls, wall
 seconds of each call) after the cards' names and power limits, and writes
-them all to ``--out``. Needs a CUDA device and the committed programs.
+them all to ``--out``.
+
+``--threshold`` measures what ``sampler.AUTO_MIN_ROWS_PER_CARD`` rests on:
+for 2^17 to 2^21 rows a card and k = 2 and 4 cards (those there are), a
+batch of k times those rows split over cards 0 .. k - 1 against the same
+batch on card 0 alone, in turns (one card, k cards, k cards, one card);
+one JSON line each with both medians and their ratio.
+
+``--auto`` measures the rule itself: for batches of 2^18 to 2^21 rows and
+the default batch (no ``batch_size``, 2^22 shots a call), the sampler on
+card 0 alone, on an explicit mesh of every card and under ``mesh="auto"``
+(the shards it took are in the line). ``--program grown`` samples
+``models.cultivation_d3_grown(p=0.001, checks=2)`` (compiled once on this
+host, about a minute) instead of d3, a program whose batches are bound by
+the cards' work rather than by the host. Needs a CUDA device and the
+committed programs.
 """
 
 from __future__ import annotations
@@ -43,18 +59,32 @@ def meshes(n_cards: int) -> list[tuple[str, object]]:
     return out
 
 
-def run(label: str, mesh, way: str, calls: int, batches: int) -> dict:
-    import torch
+def sampler_for(program: str, **kw):
+    if program == "grown":
+        from tsim_tpu_torch.models import cultivation_d3_grown
 
+        # The in-process compile cache makes every sampler after the first cheap.
+        return cultivation_d3_grown(p=0.001, checks=2).compile_detector_sampler(seed=0, **kw)
     from tsim_tpu_torch.models.exported import distillation_d3
 
-    shards = 1 if mesh is None else mesh.size
-    batch = BATCH * (shards if way == "per_shard" else 1)
-    shots = batches * batch
+    return distillation_d3(p=0.05).compile_detector_sampler(seed=0, **kw)
+
+
+def run(label: str, mesh, way: str, calls: int, batches: int, base: int | None = BATCH,
+        program: str = "d3") -> dict:
+    """``batches`` batches of ``base`` shots (a shard's with ``per_shard``);
+    ``base`` None: 2^22 shots at the default batch."""
+    import torch
+
+    shards = 1 if mesh is None or mesh == "auto" else mesh.size
+    batch = None if base is None else base * (shards if way == "per_shard" else 1)
+    shots = 1 << 22 if batch is None else batches * batch
     kw = {"device": "cuda:0", "mesh": None} if mesh is None else {"mesh": mesh}
-    sampler = distillation_d3(p=0.05).compile_detector_sampler(seed=0, **kw)
-    devices = [torch.device("cuda:0")] if mesh is None else list(mesh.distinct)
-    sampler.sample(batch, batch_size=batch, append_observables=True)  # warm-up
+    sampler = sampler_for(program, **kw)
+    size, taken = sampler._plan_batches(shots, batch)
+    shards = len(taken)
+    devices = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+    sampler.sample(size, batch_size=size, append_observables=True)  # warm-up
     walls = []
     for _ in range(calls):
         for d in devices:
@@ -67,10 +97,48 @@ def run(label: str, mesh, way: str, calls: int, batches: int) -> dict:
         del out
     rates = sorted(shots / w for w in walls)
     return {
-        "mesh": label, "way": way, "shards": shards, "cards": len(devices), "batch": batch,
+        "program": program, "mesh": label, "way": way, "shards": shards,
+        "cards": len({s.device for s in taken}), "batch": size, "batch_given": batch,
         "shots": shots, "median_shots_per_s": statistics.median(rates), "best_shots_per_s": rates[-1],
         "walls_s": walls, "norm_deviation": sampler.last_norm_deviation,
     }
+
+
+def threshold(n_cards: int, calls: int, batches: int) -> list[dict]:
+    """Sharded against unsharded at equal batches, per rows a card."""
+    from tsim_tpu_torch.parallel.shard import ShotMesh
+
+    out = []
+    for k in (c for c in (2, 4) if c <= n_cards):
+        mesh = ShotMesh([f"cuda:{i}" for i in range(k)])
+        for log2 in range(17, 22):
+            rows = 1 << log2
+            batch = k * rows
+            one = [run("unsharded cuda:0", None, "fixed", calls, batches, batch)]
+            many = [run(f"{k} cards", mesh, "fixed", calls, batches, batch)]
+            many.append(run(f"{k} cards", mesh, "fixed", calls, batches, batch))
+            one.append(run("unsharded cuda:0", None, "fixed", calls, batches, batch))
+            a = statistics.median(r["median_shots_per_s"] for r in one)
+            b = statistics.median(r["median_shots_per_s"] for r in many)
+            row = {"cards": k, "rows_a_card": rows, "batch": batch, "one_card_shots_per_s": a,
+                   "sharded_shots_per_s": b, "sharded_over_one": b / a}
+            out.append(row)
+            print(json.dumps(row), flush=True)
+    return out
+
+
+def auto(n_cards: int, calls: int, batches: int, program: str) -> list[dict]:
+    """One card, every card and "auto" at each batch size."""
+    from tsim_tpu_torch.parallel.shard import ShotMesh
+
+    every = ShotMesh([f"cuda:{i}" for i in range(n_cards)])
+    out = []
+    for batch in (1 << 18, 1 << 19, 1 << 20, 1 << 21, None):
+        for label, mesh in (("unsharded cuda:0", None), (f"{n_cards} cards", every), ("auto", "auto")):
+            row = run(label, mesh, "fixed", calls, batches, batch, program)
+            out.append(row)
+            print(json.dumps(row), flush=True)
+    return out
 
 
 def main() -> None:
@@ -78,6 +146,9 @@ def main() -> None:
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--out", default="build/shard_scaling.json")
+    parser.add_argument("--threshold", action="store_true")
+    parser.add_argument("--auto", action="store_true")
+    parser.add_argument("--program", choices=("d3", "grown"), default="d3", help="with --auto")
     args = parser.parse_args()
 
     import torch
@@ -91,6 +162,15 @@ def main() -> None:
 
     build.build()
     build.load()
+    if args.threshold or args.auto:
+        if args.threshold:
+            rows = threshold(torch.cuda.device_count(), args.calls, args.batches)
+        else:
+            rows = auto(torch.cuda.device_count(), args.calls, args.batches, args.program)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        key = "threshold" if args.threshold else "auto"
+        Path(args.out).write_text(json.dumps({"cards": smi.stdout.strip().splitlines(), key: rows}, indent=1))
+        return
     rows = []
     for label, mesh in meshes(torch.cuda.device_count()):
         for way in ("fixed", "per_shard"):

@@ -34,7 +34,16 @@ behind a sleep on the card, so that the host's time stays outside the pairs
   cultivation's 307-graph and d3's first 103-graph rung at 128 to 65,536 and
   2^20 + 1 rows, as the tree dispatches it and, where the tree has the
   private ``_block_shots``, each instance forced;
-* the self-test probe's four launches (K4), summed.
+* the self-test probe's four launches (K4), summed and one by one;
+* the per-term kernels: ``per_term_wide`` (K3a) on 2-check cultivation's
+  307-graph rung and d3's first 103-graph rung at 2^20 + 1, 4097 and 128
+  rows (the last two take its 32-shot block where the tree has one),
+  ``per_term_small`` (K3b) on d3's 6-graph rung and 1-check's last 16-graph
+  rung at 2^20 + 1 and 4096 rows (device time);
+* d3 sampling, ``sample(4 * B, batch_size=B)`` after a warm-up batch, with
+  ``per_term=True`` (every rung on K3a/K3b) and ``per_term=False``, at B =
+  4096, 65,536 and 2^20: shots/s on the host's clock (a ratio above 1 in the
+  last column is then the parent's gain).
 
 A label that only one tree times is printed with the other's column empty.
 
@@ -116,10 +125,39 @@ def measure(reps: int) -> dict:
                 out[f"{label} shots={shots}"] = device_ms(
                     lambda: sample_eval.launch(t, xs, "wide", _block_shots=shots), reps)
     probe, x = f32_eval.probe_inputs("cuda")
-    out["self-test probe, 4 launches summed"] = sum(
-        device_ms(lambda: sample_eval.launch(probe[c.removeprefix("per_term_")], x, c), reps)
-        for c in sample_eval.CONFIGURATIONS
-    )
+    each = {c: device_ms(lambda: sample_eval.launch(probe[c.removeprefix("per_term_")], x, c), reps)
+            for c in sample_eval.CONFIGURATIONS}
+    out["self-test probe, 4 launches summed"] = sum(each.values())
+    for c, ms in each.items():
+        out[f"self-test probe {c}"] = ms
+
+    for name, i, config, batches in (
+        ("cultivation", 9, "per_term_wide", (ROWS, 4097, 128)),
+        ("d3", 3, "per_term_wide", (ROWS, 4097, 128)),
+        ("d3", 2, "per_term_small", (ROWS, 4096)),
+        ("cultivation_checks1", 7, "per_term_small", (ROWS, 4096)),
+    ):
+        c = rungs[name][i]
+        t = SampleTables(c).to("cuda")
+        x = seeded_rows(c.n_params, ROWS, seed=100 + i)
+        for rows in batches:
+            xs = x[:rows]
+            out[f"{config} {name}[{i}] G={c.num_graphs} B={rows}"] = device_ms(
+                lambda: sample_eval.launch(t, xs, config), reps)
+
+    import time
+
+    import torch
+
+    for per_term in (False, True):
+        for batch in (4096, 1 << 16, 1 << 20):
+            sampler = d3.compile_detector_sampler(seed=0, device="cuda", per_term=per_term)
+            sampler.sample(batch, batch_size=batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler.sample(4 * batch, batch_size=batch)
+            torch.cuda.synchronize()
+            out[f"d3 sampling per_term={per_term} B={batch}: shots/s"] = 4 * batch / (time.perf_counter() - t0)
 
     joint = d3.load_state_probs().program.components[0].compiled_scalar_graphs[1]
     exact("state probs, seeded rows", ExactTables(joint).to("cuda"), seeded_rows(joint.n_params, ROWS, seed=50))

@@ -209,6 +209,49 @@ def test_small_kernel_takes_rows_of_two_byte_indices(cuda):
     assert torch.equal(got, kernel.launch(tables, x, "per_term_small"))
 
 
+@pytest.mark.parametrize(
+    "rows,words,groups",
+    [(1, 1, 1), (31, 2, 1), (16383, 4, 1), (16384, 4, 4), (2**20, 1, 4), (1, 5, 4), (4097, 7, 4)],
+)
+def test_per_term_wide_instance_by_rows_and_words(rows, words, groups):
+    """K3a takes its 32-shot block below WIDE_SMALL_ROWS rows, as "wide"
+    does, on rows it holds in registers (up to four packed words)."""
+    assert kernel.per_term_wide_groups(rows, words) == groups
+
+
+def test_plain_version_of_the_32_shot_per_term_instance_is_wides(d3_rungs):
+    """On the CPU a per-term rung of fewer than WIDE_SMALL_ROWS rows (K3a's
+    32-shot instance on a card) runs the plain version, equal to the wide
+    plain reference bit for bit, and launches nothing."""
+    kernel.reset_launch_counts()
+    for i, csg in enumerate(d3_rungs):
+        x = _rows(csg.n_params, 4097, seed=i)
+        per_term, packed = SampleTables(csg, per_term=True), SampleTables(csg, per_term=False)
+        assert kernel.configuration(csg.num_graphs, per_term=True).startswith("per_term_")
+        assert torch.equal(evaluate_abs_sample(per_term, x), evaluate_abs_sample(packed, x))
+        assert torch.equal(sample_product_sum_reference(per_term, x), sample_product_sum_reference(packed, x))
+    assert kernel.launch_counts == dict.fromkeys(kernel.launch_counts, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_params", [8, 42, 64, 65, 130, 200])
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 4097, 2**16 + 1])
+def test_per_term_kernels_equal_packed_ones(cuda, n_params, batch):
+    """K3a and K3b against "wide" and "small" bit for bit on seeded rungs of
+    40 and 6 graphs: rows in one or two 64-bit registers (8 to 65
+    parameters) and through shared memory (130, 200), K3a's 32-shot block
+    (below WIDE_SMALL_ROWS rows) and its 128-shot one."""
+    kernel.reset_launch_counts()
+    for g, config in ((40, "wide"), (6, "small")):
+        tables = SampleTables(synthetic_rung(n_params + g, g, n_params, (6, 4, 4, 2))).to(cuda)
+        x = _rows(n_params, batch, seed=n_params * g, device=cuda)
+        got = kernel.launch(tables, x, f"per_term_{config}")
+        assert torch.equal(kernel.launch(tables, x, config), got), (config, n_params, batch)
+    short = tables.words <= kernel.PER_TERM_REGISTER_WORDS and batch < kernel.WIDE_SMALL_ROWS
+    assert kernel.launch_counts["per_term_wide_32" if short else "per_term_wide"] == 1
+    assert kernel.launch_counts["per_term_small"] == 1
+
+
 @pytest.mark.cuda
 def test_self_test_passes_on_the_card(cuda):
     sample_eval.reset_self_test()

@@ -11,6 +11,8 @@ JAX and ``tsim_tpu`` are imported inside the tests that compare with them,
 so that the CUDA-marked cases also run where JAX is absent.
 """
 
+from math import ceil
+
 import numpy as np
 import pytest
 import torch
@@ -315,6 +317,106 @@ def test_checkpoint_of_a_missing_mesh_device_names_it(tmp_path):
     program_io.write_npz(path, arrays, header)
     with pytest.raises(RuntimeError, match="cuda:3"):
         CompiledDetectorSampler.load(path)
+
+
+# ------------------------------------- "auto": cards by the rows of a batch
+
+
+@pytest.mark.parametrize(
+    "rows,cards,want",
+    [(1, 4, 1), (2**19, 4, 1), (2**20 - 1, 4, 1), (2**20, 4, 2), (3 * 2**19, 4, 3),
+     (2**21, 4, 4), (2**24, 4, 4), (2**24, 2, 2), (2**21, 8, 4), (2**20, 1, 1)],
+)
+def test_auto_gives_each_card_its_minimum_rows(rows, cards, want):
+    assert port_sampler.AUTO_MIN_ROWS_PER_CARD == 2**19
+    assert port_sampler.auto_cards(rows, cards, card_rows=2**40) == want
+
+
+@pytest.mark.parametrize(
+    "rows,cards,card_rows,want",
+    [(2**20, 4, 2**18, 4), (2**20, 4, 2**19, 2), (2**20, 4, 3 * 2**18, 2), (3 * 2**17, 4, 2**17, 3),
+     (100, 4, 30, 4), (100, 4, 50, 2), (100, 4, 100, 1), (10**9, 4, 10, 4), (2**22, 2, 2**20, 2)],
+)
+def test_auto_takes_more_cards_where_one_card_budget_is_exceeded(rows, cards, card_rows, want):
+    k = port_sampler.auto_cards(rows, cards, card_rows)
+    assert k == want
+    # No card gets more than its budget unless every card is taken.
+    assert max(shard_sizes(rows, k)) <= card_rows or k == cards
+
+
+@pytest.fixture
+def auto_replicas(monkeypatch):
+    """"auto" resolving to four CPU replicas, each needing 64 rows a batch."""
+    monkeypatch.setattr(port_sampler, "_auto_mesh", lambda: ShotMesh(["cpu"] * 4))
+    monkeypatch.setattr(port_sampler, "AUTO_MIN_ROWS_PER_CARD", 64)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("batch,shards", [(32, 1), (64, 1), (127, 1), (128, 2), (200, 3), (1000, 4)])
+def test_auto_draws_the_stream_of_the_cards_a_batch_takes(auto_replicas, batch, shards):
+    c = Circuit(CIRCUIT)
+    auto = c.compile_detector_sampler(seed=5)
+    assert auto._mesh_spec == "auto" and auto._mesh.size == 4
+    assert len(auto._shards_for(batch)) == shards
+    explicit = c.compile_detector_sampler(
+        seed=5, device="cpu", mesh=None if shards == 1 else ShotMesh(["cpu"] * shards)
+    )
+    np.testing.assert_array_equal(
+        auto.sample(2 * batch + 7, batch_size=batch), explicit.sample(2 * batch + 7, batch_size=batch)
+    )
+
+
+@pytest.mark.parametrize("shots,batch", [(100, None), (1000, None), (7, None), (200, 25), (200, 64)])
+def test_auto_batch_and_cards_fit_a_small_card_budget(auto_replicas, shots, batch):
+    """A card's memory budget under the rows rule: the default batch is the
+    budget times the cards, and no card is given more than its budget."""
+    auto_replicas.setattr(port_sampler._CompiledSamplerBase, "_card_rows", lambda self: 10)
+    c = Circuit(CIRCUIT)
+    auto = c.compile_detector_sampler(seed=4)
+    size, shards = auto._plan_batches(shots, batch)
+    assert size == (batch or ceil(shots / ceil(shots / 40)))
+    assert max(shard_sizes(min(size, shots), len(shards))) <= 10 or len(shards) == 4
+    k = len(shards)
+    explicit = c.compile_detector_sampler(
+        seed=4, device="cpu", mesh=None if k == 1 else ShotMesh(["cpu"] * k))
+    np.testing.assert_array_equal(auto.sample(shots, batch_size=batch), explicit.sample(shots, batch_size=size))
+
+
+def test_auto_postselection_and_state_probs_take_the_same_cards(auto_replicas):
+    c = Circuit(CIRCUIT)
+    mask = np.ones(1, dtype=bool)
+    for batch, mesh in ((48, None), (256, ShotMesh(["cpu"] * 4))):
+        auto = c.compile_detector_sampler(seed=2).sample(
+            300, batch_size=batch, postselection_mask=mask, separate_observables=True)
+        explicit = c.compile_detector_sampler(seed=2, device="cpu", mesh=mesh).sample(
+            300, batch_size=batch, postselection_mask=mask, separate_observables=True)
+        for a, b in zip(auto, explicit):
+            np.testing.assert_array_equal(a, b)
+    state = np.zeros(D3.load_state_probs().program.num_outputs, dtype=np.uint8)
+    auto = D3.compile_state_probs(seed=3)
+    assert auto._mesh.size == 4
+    np.testing.assert_array_equal(
+        auto.probability_of(state, batch_size=200),
+        D3.compile_state_probs(seed=3, device="cpu", mesh=None).probability_of(state, batch_size=200),
+    )
+
+
+def test_auto_checkpoint_keeps_the_resolved_cards(auto_replicas, tmp_path):
+    path = tmp_path / "auto.ckpt"
+    a = D3.compile_detector_sampler(seed=9)
+    a.sample(256, batch_size=128)  # two of the four cards
+    a.save(path)
+    _, header = program_io.read_npz(path)
+    assert header["checkpoint"]["mesh"] == "auto"
+    assert header["checkpoint"]["mesh_devices"] == ["cpu"] * 4
+    # The loader's own "auto" would resolve to other cards: the checkpoint's hold.
+    auto_replicas.setattr(port_sampler, "_auto_mesh", lambda: ShotMesh(["cpu"] * 2))
+    b = CompiledDetectorSampler.load(path)
+    assert b._mesh_spec == "auto" and b._mesh == a._mesh
+    for batch in (128, 32, 1000):
+        np.testing.assert_array_equal(
+            a.sample(2 * batch, batch_size=batch), b.sample(2 * batch, batch_size=batch)
+        )
 
 
 # ------------------------------------------------------------- the mesh itself

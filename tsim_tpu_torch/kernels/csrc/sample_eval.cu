@@ -19,11 +19,19 @@
 //   thread a mask (bitsliced.cuh::small_front_end, shared with the small
 //   exact kernel): below 24 graphs a thread a graph would leave most of the
 //   block idle; any number of parameters;
-//   "per_term_wide" / "per_term_small" (K3a / K3b): the same popcount with
+//   "per_term_wide" / "per_term_small" (K3a / K3b): a popcount per term and
+//   shot, nothing of bitsliced.cuh, so that they stay the oracles of the
+//   bit-sliced ones. Up to 128 parameters (two 64-bit words) a thread holds
+//   its shots' packed rows in registers, templated on the word count, and
+//   the block stages a chunk of graphs' term masks in shared memory, which
+//   a warp then reads as broadcasts: a parity is an AND per word, an XOR
+//   fold to 32 bits and one __popc. K3a takes 128 shots a block (4 a
+//   thread) or, for launches below kernels/sample_eval.py::WIDE_SMALL_ROWS
+//   rows, 32 (K4's 128-row probe then fills four SMs, not one); K3b a
+//   thread a shot and 256 shots a block. Longer rows keep the first design:
 //   the packed words staged in shared memory and read in a loop over all W
-//   words for each term, so P has no word cap (only the block's shared
-//   memory bounds it: 1024 W bytes a block in the wide and 4 W bytes a shot
-//   in the small configuration).
+//   words for each term (1024 W bytes a 256-shot block in the wide and 4 W
+//   bytes a shot in the small configuration).
 // In every configuration a thread applies the f32 factors of a graph to its
 // own shots (accumulate_graph) and adds the graphs' products one after the
 // other, so whatever belongs to the graph (its table entries) is the same for
@@ -71,8 +79,10 @@
 // for every graph of the rung, which costs about 2.7 listed parameters per
 // set mask bit on that rung. The kernel reads P bytes and writes 8 bytes per
 // shot, and the tables of one rung are a few hundred KB that stay in L1/L2.
-// The per-term configurations are bound by the popcount unit, which runs at a
-// quarter of the f32 rate. "small" walked popcounts too, a thread a shot, every
+// The per-term configurations pay a popcount (a quarter of the f32 rate) and
+// an AND and XOR per word for every term and shot, on top of "wide"'s
+// per-shot stage; their row-in-register instances read no row word and no
+// mask from device memory per term. "small" walked popcounts too, a thread a shot, every
 // lane of a warp repeating the same table loads and address arithmetic; its
 // parities now cost one 16-byte shared-memory load and four XORs per listed
 // parameter per 128 shots, and what is left is the row load, three block
@@ -119,8 +129,11 @@ using bitsliced::kT4;
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr int kWideThreads = 128;  // upper bound of the wide block, and of its per-shot stage
 constexpr int kWideSmallThreads = 512;  // upper bound of the 32-shot wide block
-constexpr int kPerTermGroups = 8;  // 32-shot groups per per-term wide block
-constexpr int kSmallThreads = 128;  // upper bound of the per-term small block
+constexpr int kPerTermGroups = 8;  // 32-shot groups per per-term wide block of long rows
+constexpr int kSmallThreads = 128;  // upper bound of the per-term small block of long rows
+constexpr int kPerTermSmallShots = 256;  // per-term small block of rows in registers
+constexpr int kRegisterWords = 2;  // 64-bit row words held in registers, at most
+constexpr int kStageBytes = 40 * 1024;  // staged term masks of one chunk of graphs, at most
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
 // Threads of a wide block: one a graph up to `most`, a whole number of warps.
@@ -544,6 +557,186 @@ __global__ void __launch_bounds__(kSmallThreads)
   out[b * 2 + 1] = acc_im[0];
 }
 
+// The per-term kernels of rows of at most kRegisterWords 64-bit words (K3a,
+// K3b): each thread holds its NS shots' packed rows in registers, and the
+// block stages the term masks of a chunk of n graphs in shared memory as
+// 64-bit words: mask m of chunk graph j, word w at stage[(m * n + j) * W64 +
+// w], masks in the order node terms, half-pi terms, psi, phi, alpha, beta.
+
+__device__ __forceinline__ int mask_count(const Tables& tb) {
+  return tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4;
+}
+
+// The 32-bit words of mask m of graph g in the table buffer.
+__device__ __forceinline__ const uint32_t* mask_words(const Tables& tb, int m, int g) {
+  const uint32_t* seg;
+  int t = m;
+  if (t < tb.T1) {
+    seg = tb.np_w;
+  } else if ((t -= tb.T1) < tb.T2) {
+    seg = tb.hp_w;
+  } else if ((t -= tb.T2) < tb.T3) {
+    seg = tb.psi_w;
+  } else if ((t -= tb.T3) < tb.T3) {
+    seg = tb.phi_w;
+  } else if ((t -= tb.T3) < tb.T4) {
+    seg = tb.a_w;
+  } else {
+    t -= tb.T4;
+    seg = tb.b_w;
+  }
+  return seg + (long long)(t * tb.G + g) * tb.W;
+}
+
+// Copies the masks of graphs c0 .. c0 + n - 1 into `stage`, the whole block.
+template <int W64>
+__device__ __forceinline__ void stage_masks(const Tables& tb, int c0, int n, uint64_t* stage) {
+  const int total = mask_count(tb) * n * W64;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int w = i % W64, j = (i / W64) % n, m = i / (W64 * n);
+    const uint32_t* src = mask_words(tb, m, c0 + j);
+    const uint32_t lo = __ldg(src + 2 * w);
+    const uint32_t hi = 2 * w + 1 < tb.W ? __ldg(src + 2 * w + 1) : 0u;
+    stage[i] = (uint64_t)hi << 32 | lo;
+  }
+}
+
+// A shot's row of P parameter bytes as W64 packed 64-bit words (zero for a
+// shot past the batch).
+template <int W64>
+__device__ __forceinline__ void load_row(const uint8_t* __restrict__ x, long long b, long long B, int P,
+                                         uint64_t (&row)[W64]) {
+#pragma unroll
+  for (int i = 0; i < W64; ++i) {
+    uint64_t word = 0;
+    if (b < B) {
+      const uint8_t* r = x + b * P;
+      const int hi = min(P, 64 * i + 64);
+      for (int p = 64 * i; p < hi; ++p) word |= (uint64_t)(r[p] & 1) << (p - 64 * i);
+    }
+    row[i] = word;
+  }
+}
+
+// Parities of one graph from its staged masks and NS rows held in registers.
+template <int NS, int W64>
+struct StagedParities {
+  const Tables& tb;
+  const uint64_t (&rows)[NS][W64];
+  const uint64_t* masks;  // mask 0 of this graph in the stage
+  int step;               // from one mask of the graph to the next: n * W64
+  int g;
+
+  __device__ __forceinline__ void parities(int m, int (&p)[NS]) const {
+    uint64_t w[W64];
+#pragma unroll
+    for (int i = 0; i < W64; ++i) w[i] = masks[m * step + i];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      uint64_t a = rows[k][0] & w[0];
+#pragma unroll
+      for (int i = 1; i < W64; ++i) a ^= rows[k][i] & w[i];
+      p[k] = __popc((uint32_t)a ^ (uint32_t)(a >> 32)) & 1;
+    }
+  }
+  __device__ __forceinline__ void node(int t, int (&p)[NS]) const { parities(t, p); }
+  __device__ __forceinline__ void halfpi(int (&tot)[NS]) const {
+    int p[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) tot[k] = 0;
+    for (int t = 0; t < tb.T2; ++t) {
+      parities(tb.T1 + t, p);
+      const int coeff = __ldg(tb.hp_c + t * tb.G + g);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) tot[k] += coeff * p[k];
+    }
+  }
+  __device__ __forceinline__ void sign(int (&sgn)[NS]) const {
+    int p[NS], q[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) sgn[k] = 0;
+    const int psi = tb.T1 + tb.T2, phi = psi + tb.T3;
+    for (int t = 0; t < tb.T3; ++t) {
+      parities(psi + t, p);
+      parities(phi + t, q);
+      const int i = t * tb.G + g;
+      const int pc = __ldg(tb.psi_c + i) & 1, qc = __ldg(tb.phi_c + i) & 1;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) sgn[k] ^= (pc ^ p[k]) & (qc ^ q[k]);
+    }
+  }
+  __device__ __forceinline__ void pair(int t, int (&p)[NS], int (&q)[NS]) const {
+    const int alpha = tb.T1 + tb.T2 + 2 * tb.T3;
+    parities(alpha + t, p);
+    parities(alpha + tb.T4 + t, q);
+  }
+  __device__ __forceinline__ int bare(int) const { return 0; }
+};
+
+// Per-term wide configuration of short rows (K3a): block = 32 NG shots x
+// wide_threads(G) threads, a lane one shot of each group of 32, as in
+// "wide"'s per-shot stage. Warp w adds the graphs w, w + warps, w + 2 warps,
+// ... in order, which is the order "wide" gives each warp (its chunks and
+// spans start at multiples of the warp count), then the warps' sums are
+// added in order: the two agree bit for bit. The chunks of n staged graphs
+// only split that sequence.
+template <int NG, int W64>
+__global__ void __launch_bounds__(kWideThreads)
+    sample_eval_per_term_wide_regs(const uint8_t* __restrict__ x, long long B, int P, Tables tb, int n,
+                                   float* __restrict__ out) {
+  extern __shared__ uint64_t stage_dyn[];
+  const long long b0 = (long long)blockIdx.x * 32 * NG;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  uint64_t rows[NG][W64];
+#pragma unroll
+  for (int k = 0; k < NG; ++k) load_row<W64>(x, b0 + 32 * k + lane, B, P, rows[k]);
+  float acc_re[NG], acc_im[NG];
+#pragma unroll
+  for (int k = 0; k < NG; ++k) {
+    acc_re[k] = 0.0f;
+    acc_im[k] = 0.0f;
+  }
+  for (int c0 = 0; c0 < tb.G; c0 += n) {
+    const int m = min(n, tb.G - c0);
+    __syncthreads();  // the previous chunk's masks are read
+    stage_masks<W64>(tb, c0, m, stage_dyn);
+    __syncthreads();
+    for (int g = c0 + (warp - c0 % warps + warps) % warps; g < c0 + m; g += warps) {
+      const StagedParities<NG, W64> par{tb, rows, stage_dyn + (g - c0) * W64, m * W64, g};
+      accumulate_graph<kAllStages, NG>(tb, g, par, acc_re, acc_im);
+    }
+  }
+  warps_sum_store(acc_re, acc_im, warps, b0, B, out);
+}
+
+// Per-term small configuration of short rows (K3b): a thread a shot,
+// kPerTermSmallShots shots a block, every graph in order, as "small" adds
+// them: the two agree bit for bit.
+template <int W64>
+__global__ void __launch_bounds__(kPerTermSmallShots)
+    sample_eval_per_term_small_regs(const uint8_t* __restrict__ x, long long B, int P, Tables tb, int n,
+                                    float* __restrict__ out) {
+  extern __shared__ uint64_t stage_dyn[];
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint64_t rows[1][W64];
+  load_row<W64>(x, b, B, P, rows[0]);
+  float acc_re[1] = {0.0f}, acc_im[1] = {0.0f};
+  for (int c0 = 0; c0 < tb.G; c0 += n) {
+    const int m = min(n, tb.G - c0);
+    __syncthreads();
+    stage_masks<W64>(tb, c0, m, stage_dyn);
+    __syncthreads();
+    for (int g = c0; g < c0 + m; ++g) {
+      const StagedParities<1, W64> par{tb, rows, stage_dyn + (g - c0) * W64, m * W64, g};
+      accumulate_graph<kAllStages, 1>(tb, g, par, acc_re, acc_im);
+    }
+  }
+  if (b < B) {
+    out[b * 2] = acc_re[0];
+    out[b * 2 + 1] = acc_im[0];
+  }
+}
+
 // A block's static and dynamic shared memory together may exceed the
 // default 48 KB only with the kernel's consent; beyond what the card has,
 // the attribute is refused and the launch is not made.
@@ -594,8 +787,50 @@ cudaError_t launch_small_as(const uint8_t* x, long long B, int P, const Tables& 
   return cudaSuccess;
 }
 
+// Graphs a chunk of staged masks holds: as many as kStageBytes take.
+inline int stage_graphs(const Tables& tb, int W64) {
+  const long long per_graph = 8LL * W64 * (tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4);
+  const long long n = per_graph ? kStageBytes / per_graph : tb.G;
+  return (int)(n < 1 ? 1 : n < tb.G ? n : tb.G);
+}
+
+template <int W64>
+cudaError_t launch_per_term_regs(const uint8_t* x, long long B, int P, const Tables& tb, int config,
+                                 int groups, float* out, cudaStream_t stream) {
+  const int n = stage_graphs(tb, W64);
+  const size_t bytes = 8ull * W64 * n * (tb.T1 + tb.T2 + 2 * tb.T3 + 2 * tb.T4);
+  if (config == kPerTermWide) {
+    const int threads = wide_threads(tb.G);
+    if (groups == 1) {
+      const cudaError_t err = allow_shared(sample_eval_per_term_wide_regs<1, W64>, bytes);
+      if (err != cudaSuccess) return err;
+      sample_eval_per_term_wide_regs<1, W64><<<(unsigned)((B + 31) / 32), threads, bytes, stream>>>(
+          x, B, P, tb, n, out);
+    } else {
+      const cudaError_t err = allow_shared(sample_eval_per_term_wide_regs<4, W64>, bytes);
+      if (err != cudaSuccess) return err;
+      sample_eval_per_term_wide_regs<4, W64><<<(unsigned)((B + 127) / 128), threads, bytes, stream>>>(
+          x, B, P, tb, n, out);
+    }
+  } else {
+    const cudaError_t err = allow_shared(sample_eval_per_term_small_regs<W64>, bytes);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (B + kPerTermSmallShots - 1) / kPerTermSmallShots;
+    sample_eval_per_term_small_regs<W64><<<(unsigned)blocks, kPerTermSmallShots, bytes, stream>>>(
+        x, B, P, tb, n, out);
+  }
+  return cudaSuccess;
+}
+
+// The per-term configurations: rows of up to kRegisterWords 64-bit words in
+// registers (the wide one with `groups` 32-shot groups a block, 1 or 4),
+// longer rows through shared memory.
 cudaError_t launch_per_term(const uint8_t* x, long long B, int P, const Tables& tb, int config,
-                            float* out, cudaStream_t stream) {
+                            int groups, float* out, cudaStream_t stream) {
+  const int W64 = (tb.W + 1) / 2;
+  if (config == kPerTermWide && groups != 1 && groups != 4) return cudaErrorInvalidValue;
+  if (W64 == 1) return launch_per_term_regs<1>(x, B, P, tb, config, groups, out, stream);
+  if (W64 == kRegisterWords) return launch_per_term_regs<2>(x, B, P, tb, config, groups, out, stream);
   if (config == kPerTermWide) {
     const size_t bytes = sizeof(uint32_t) * 32 * kPerTermGroups * tb.W;
     const cudaError_t err = allow_shared(sample_eval_per_term_wide, bytes);
@@ -637,13 +872,15 @@ cudaError_t launch_ablate(const uint8_t* x, long long B, int P, const Tables& tb
 
 // x: (B, P) uint8 rows; flat: the rung's table buffer; out: (B, 2) float32.
 // config: 0 small, 1 wide, 2 per-term small, 3 per-term wide, each for any
-// number W of packed words a row; groups: 32-shot groups a block of "wide",
-// 1 or 4 (the others take 1). Returns the first CUDA error of the launch (0
+// number W of packed words a row; groups: 32-shot groups a block of "wide"
+// and of "per_term_wide" on rows of up to 128 parameters, 1 or 4 (the
+// others take 1). Returns the first CUDA error of the launch (0
 // on success); the caller raises on anything else.
 extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* flat, int G,
                                 int T1, int T2, int T3, int T4, int W, int config, int groups,
                                 void* out, void* stream) {
-  if (B <= 0 || G <= 0 || W <= 0 || (config != kWide && groups != 1)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || G <= 0 || W <= 0 || (config != kWide && config != kPerTermWide && groups != 1))
+    return (int)cudaErrorInvalidValue;
   const Tables tb = make_tables(static_cast<const int32_t*>(flat), G, T1, T2, T3, T4, W);
   const uint8_t* xp = static_cast<const uint8_t*>(x);
   float* op = static_cast<float*>(out);
@@ -652,7 +889,7 @@ extern "C" int tsim_sample_eval(const void* x, long long B, int P, const void* f
   switch (config) {
     case kWide: err = launch_wide<kAllStages>(xp, B, P, tb, groups, op, s); break;
     case kPerTermSmall:
-    case kPerTermWide: err = launch_per_term(xp, B, P, tb, config, op, s); break;
+    case kPerTermWide: err = launch_per_term(xp, B, P, tb, config, groups, op, s); break;
     case kSmall:
       err = bitsliced::index_bytes(P) == 1 ? launch_small_as<1>(xp, B, P, tb, op, s)
                                            : launch_small_as<2>(xp, B, P, tb, op, s);

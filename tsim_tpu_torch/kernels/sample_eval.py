@@ -12,7 +12,9 @@ Configurations by name (and the TPU kernel each replaces): ``wide`` (K1) and
 ``per_term_wide`` (K3a), ``per_term_small`` (K3b). ``wide`` has two
 instances, 128 and 32 shots a block, chosen by row count
 (:func:`wide_block_shots`) and equal bit for bit; launches of the 32-shot
-one count as ``wide_32``. ``self_test`` counts the launches of the start-up
+one count as ``wide_32``. ``per_term_wide`` has the same two on rows of up
+to 128 parameters (:func:`per_term_wide_groups`), the 32-shot one counted
+as ``per_term_wide_32``. ``self_test`` counts the launches of the start-up
 self-test (K4) and ``ablate`` those of the stage ablation (K8,
 ``dev/torch_kernel_ablate.py``).
 """
@@ -54,7 +56,9 @@ ABLATION_VARIANTS = (
 # Launches per kernel, counted where each launch succeeds, and the same per
 # device ({"cuda:0": {name: launches}}; a sharded sampler's kernels run on
 # every device of its mesh).
-launch_counts = {name: 0 for name in (*CONFIGURATIONS, "wide_32", "self_test", "ablate")}
+launch_counts = {
+    name: 0 for name in (*CONFIGURATIONS, "wide_32", "per_term_wide_32", "self_test", "ablate")
+}
 device_launch_counts: dict[str, dict[str, int]] = {}
 
 
@@ -97,6 +101,20 @@ def wide_block_shots(rows: int) -> int:
     if rows <= 0:
         raise ValueError(f"a launch takes at least one row, got {rows}")
     return 32 if rows < WIDE_SMALL_ROWS else 128
+
+
+# Packed 32-bit words of a row up to which the per-term kernels hold it in
+# registers (two 64-bit words, 128 parameters); longer rows go through
+# shared memory in one 256-shot instance.
+PER_TERM_REGISTER_WORDS = 4
+
+
+def per_term_wide_groups(rows: int, words: int) -> int:
+    """32-shot groups a block of "per_term_wide" for a launch of ``rows``
+    rows of ``words`` packed words: 1 below WIDE_SMALL_ROWS, as "wide", on
+    rows held in registers, else 4 (longer rows take their own 256-shot
+    instance, which ignores it)."""
+    return 1 if words <= PER_TERM_REGISTER_WORDS and 0 < rows < WIDE_SMALL_ROWS else 4
 
 
 def _check(tables, x: torch.Tensor) -> None:
@@ -159,6 +177,9 @@ def launch(
     if config == "wide" and x.shape[0] > 0:
         shots = _block_shots or wide_block_shots(x.shape[0])
         name, groups = ("wide" if shots == 128 else "wide_32"), shots // 32
+    elif config == "per_term_wide":
+        groups = per_term_wide_groups(x.shape[0], tables.words)
+        name = "per_term_wide_32" if groups == 1 else config
     return _call("tsim_sample_eval", CONFIGURATIONS.index(config), tables, x, count_as or name, groups)
 
 

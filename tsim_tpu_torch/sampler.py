@@ -413,16 +413,47 @@ def _resolve_device(device) -> torch.device:
     return indexed_device(device)
 
 
+# "auto" gives a card at least this many rows of a batch: below it the one
+# host thread's enqueue of every shard's launches costs more than the cards
+# save. d3 on four H100s, a batch split over k cards against the same batch
+# on one (dev/torch_shard_scaling.py --threshold, PERF.md section 6): 2^18
+# rows a card 0.90x (k = 2) and 0.93x (k = 4), 2^19 1.33x and 1.40x.
+AUTO_MIN_ROWS_PER_CARD = 1 << 19
+
+
+def _auto_mesh() -> ShotMesh | None:
+    """The cards "auto" may shard over: every visible CUDA device where there
+    are two or more, else None."""
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        return make_shot_mesh()
+    return None
+
+
+def auto_cards(rows: int, cards: int, card_rows: int) -> int:
+    """How many of ``cards`` an "auto" mesh shards a batch of ``rows`` rows
+    over: as many as each get AUTO_MIN_ROWS_PER_CARD rows, and more where
+    fewer would give a card over ``card_rows`` rows (its memory budget, see
+    ``_CompiledSamplerBase._card_rows``); at least one, at most ``cards``."""
+    return max(1, min(cards, max(ceil(rows / card_rows), rows // AUTO_MIN_ROWS_PER_CARD)))
+
+
 def _resolve_mesh(mesh, device) -> tuple[ShotMesh | None, torch.device]:
     """(the sampling mesh or None, the sampler's device) of the ``mesh`` and
-    ``device`` arguments, as ``tsim_tpu/sampler.py::_resolve_mesh`` reads
-    ``mesh``.
+    ``device`` arguments.
 
-    None samples unsharded. "auto" shards over every CUDA device when
-    ``device`` is None and more than one card is visible, else samples
-    unsharded (on the CPU, on one card, with an explicit ``device``). A
-    :class:`ShotMesh` of one entry samples unsharded on its device; a larger
-    one is used as given. A mesh's first device is the sampler's device: an
+    None samples unsharded. "auto" with ``device`` None and two or more
+    cards visible resolves to the mesh of every card (:func:`_auto_mesh`),
+    whose first card is the sampler's; each batch then takes only the first
+    :func:`auto_cards` of them, as many as each get AUTO_MIN_ROWS_PER_CARD
+    rows (more only where a card's memory budget would otherwise be
+    exceeded), and a batch that one card takes samples unsharded on the
+    first card (``_CompiledSamplerBase._plan_batches``). So the stream "auto"
+    draws depends on the batch size: a batch of B rows over k cards draws
+    shard i's generator for i < k, one on one card the unsharded generator.
+    "auto" samples unsharded on the CPU, on one card and with an explicit
+    ``device``. A :class:`ShotMesh` of one entry samples
+    unsharded on its device; a larger one is used as given, every batch split
+    over all of it. A mesh's first device is the sampler's device: an
     explicit ``device`` that is another one raises. Sharded and unsharded
     samplers draw different (each seeded and reproducible) streams.
     """
@@ -431,9 +462,9 @@ def _resolve_mesh(mesh, device) -> tuple[ShotMesh | None, torch.device]:
     if isinstance(mesh, str):
         if mesh != "auto":
             raise ValueError(f'mesh must be None, "auto" or a ShotMesh, got {mesh!r}')
-        if device is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
-            mesh = make_shot_mesh()
-            return mesh, mesh.devices[0]
+        auto = _auto_mesh() if device is None else None
+        if auto is not None:
+            return auto, auto.devices[0]
         return None, _resolve_device(device)
     if not isinstance(mesh, ShotMesh):
         raise TypeError(f'mesh must be None, "auto" or a ShotMesh, got {type(mesh).__name__}')
@@ -653,8 +684,9 @@ class _CompiledSamplerBase:
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
         devices = (self.device,) if self._mesh is None else self._mesh.distinct
         self._replicas = replicate(self._tables, devices)
+        self._solo = _Shard(self.device, self._generator, self._tables, self._device_channels)
         if self._mesh is None:
-            self._shards = [_Shard(self.device, self._generator, self._tables, self._device_channels)]
+            self._shards = [self._solo]
         else:
             channels = {
                 d: self._device_channels if d == self.device else DeviceChannelSampler(exported.noise, d)
@@ -669,6 +701,17 @@ class _CompiledSamplerBase:
         # Largest normalization deviation of the last sample() call (the
         # monitor warns above norm_deviation_tolerance()).
         self.last_norm_deviation: float | None = None
+
+    def _shards_for(self, rows: int, card_rows: int | None = None) -> list[_Shard]:
+        """The shards a batch of ``rows`` rows is split over: every shard of
+        the mesh, except under "auto", which takes the first
+        :func:`auto_cards` (``card_rows``, a card's memory budget, read if
+        not given) and, where that is one, the unsharded shard (see
+        :func:`_resolve_mesh`)."""
+        if self._mesh is None or self._mesh_spec != "auto":
+            return self._shards
+        k = auto_cards(rows, self._mesh.size, card_rows or self._card_rows())
+        return self._shards[:k] if k > 1 else [self._solo]
 
     def __repr__(self) -> str:
         """tsim_tpu's dashboard: direct outputs, graphs, error channel bits,
@@ -786,14 +829,17 @@ class _CompiledSamplerBase:
         fully-direct program, the host ``ChannelSampler``'s. :meth:`load`
         rebuilds the tables and continues the same sample stream; the
         native frame engine restarts from its seed, as tsim_tpu's does after
-        a load. The mesh is recorded as "auto" where the automatic rule
-        chose it (it is resolved again on load, as in tsim_tpu), as its
-        device list where it was given."""
+        a load. The mesh is recorded as its device list where it was given;
+        where "auto" chose it, as "auto" with the cards it resolved to
+        (none on one card), which :meth:`load` takes again, so that every
+        batch of the reloaded sampler takes the shards the original's would
+        and the stream goes on as it would have."""
         exported = ExportedProgram(program=self._program, noise=self._noise, num_detectors=self._num_detectors)
         arrays, header = flatten(exported)
         header["checkpoint"] = {
             "class": type(self).__name__, "seed": self._reference_seed,
             "device": self.device.type, "mesh": self._mesh_spec, "options": self._options(),
+            "mesh_devices": None if self._mesh is None else [str(d) for d in self._mesh.devices],
             "circuit": None if self.circuit is None else str(self.circuit),
             "channel_state": None if self._channel_sampler is None
             else self._channel_sampler._rng.bit_generator.state,
@@ -809,8 +855,8 @@ class _CompiledSamplerBase:
         """Restore a sampler written by :meth:`save` onto the device type it
         was saved from (a CUDA checkpoint raises without a card) or onto its
         mesh (a saved device that is missing raises, naming it; an "auto"
-        mesh that resolves to another number of shards starts its shards
-        from their seeds); a checkpoint of another class raises TypeError."""
+        mesh is rebuilt on the cards it resolved to, and keeps choosing its
+        shards by batch size); a checkpoint of another class raises TypeError."""
         arrays, header = read_npz(path)
         saved = header.pop("checkpoint", None)
         if saved is None:
@@ -820,11 +866,15 @@ class _CompiledSamplerBase:
         state = torch.from_numpy(arrays.pop("checkpoint.generator_state"))
         shard_states = [arrays.pop(f"checkpoint.shard_generator_state.{i}") for i in range(
             sum(k.startswith("checkpoint.shard_generator_state.") for k in arrays))]
-        mesh = saved.get("mesh")
+        spec = saved.get("mesh")
+        # A checkpoint from before "auto" recorded its cards resolves it again.
+        mesh = saved.get("mesh_devices", "auto") if spec == "auto" else spec
         device = saved["device"] if mesh is None else None
         if isinstance(mesh, list):
             mesh = ShotMesh(mesh)
         obj = cls(unflatten(arrays, header), seed=saved["seed"], device=device, mesh=mesh, **saved["options"])
+        if spec == "auto":
+            obj._mesh_spec = "auto"
         obj._generator.set_state(state)
         if obj._mesh is not None and len(shard_states) == obj._mesh.size:
             for shard, shard_state in zip(obj._shards, shard_states):
@@ -850,9 +900,10 @@ class _CompiledSamplerBase:
                 peak = max(peak, c.num_graphs * largest * 3)
         return max(peak, 1)
 
-    def _estimate_batch_size(self) -> int:
-        """Half of the free memory of each device over its shards' peak bytes
-        a shot; the least of them times the shards."""
+    def _card_rows(self) -> int:
+        """The memory budget of a shard's batch in rows: half of the free
+        memory of each device over its shards' peak bytes a shot, the least
+        over the devices."""
         shards_on = collections.Counter(s.device for s in self._shards)
         rows = []
         for device, k in shards_on.items():
@@ -861,7 +912,11 @@ class _CompiledSamplerBase:
             else:
                 available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
             rows.append(int(available * 0.5) // self._peak_bytes_per_sample() // k)
-        return max(1, min(rows) * len(self._shards))
+        return max(1, min(rows))
+
+    def _estimate_batch_size(self) -> int:
+        """The default batch: a shard's memory budget times the shards."""
+        return self._card_rows() * len(self._shards)
 
     @staticmethod
     def _validate_shot_args(shots: int, batch_size: int | None) -> None:
@@ -870,11 +925,18 @@ class _CompiledSamplerBase:
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
 
-    def _resolve_batch_size(self, shots: int, batch_size: int | None) -> int:
-        if batch_size is not None:
-            return batch_size
-        num_batches = max(1, ceil(shots / self._estimate_batch_size()))
-        return ceil(shots / num_batches)
+    def _plan_batches(self, shots: int, batch_size: int | None) -> tuple[int, list[_Shard]]:
+        """(the batch size, the shards each batch is split over), chosen from
+        one reading of the memory budget, so that no card of an "auto" mesh
+        gets more rows than its budget: ``batch_size`` or by default the
+        budget times the shards, evened out over the batches; the shards as
+        :meth:`_shards_for` picks them for a batch of that size."""
+        auto = self._mesh is not None and self._mesh_spec == "auto"
+        card_rows = self._card_rows() if batch_size is None or auto else None
+        if batch_size is None:
+            num_batches = max(1, ceil(shots / (card_rows * len(self._shards))))
+            batch_size = ceil(shots / num_batches)
+        return batch_size, self._shards_for(min(batch_size, shots), card_rows)
 
     def _reference_sample(self) -> np.ndarray:
         """The outputs of the all-zero noise row, (num_outputs,) bool.
@@ -895,13 +957,16 @@ class _CompiledSamplerBase:
             self._reference = out[0].cpu().numpy().astype(np.bool_)
         return self._reference
 
-    def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None) -> np.ndarray:
+    def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None, stage=None) -> np.ndarray:
         """(shots, num_outputs) bool samples; ``fold``, a (num_outputs,) bool
         row, is XORed into every row on the device (the reference folds).
         Each batch is split over the shards (one when unsharded) as
         ``tensor_split`` cuts it, each shard's rows contiguous in the result.
         A fully-direct program is drawn on the host in one go
-        (``batch_size`` unused) and folded there."""
+        (``batch_size`` unused) and folded there. ``stage(name)``, if given,
+        is called as each stage of a batch ends: "noise" and "ladder" for
+        each shard (:meth:`_sample_batch`), "push" once every shard's rows
+        are pushed, and "close" once the last rows are in the result."""
         self._validate_shot_args(shots, batch_size)
         num_outputs = self._program.num_outputs
         if shots == 0:
@@ -911,10 +976,9 @@ class _CompiledSamplerBase:
             if fold is not None:
                 samples ^= np.asarray(fold, np.bool_)
             return samples
-        batch_size = self._resolve_batch_size(shots, batch_size)
+        batch_size, shards = self._plan_batches(shots, batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
-        shards = self._shards
         rows = ceil(min(batch_size, shots) / len(shards))
         to_host = [_RowsToHost(result, s.device, rows) for s in shards]
         folds = {s.device: None if fold is None else torch.as_tensor(np.asarray(fold, np.uint8), device=s.device)
@@ -923,7 +987,7 @@ class _CompiledSamplerBase:
         for start in range(0, shots, batch_size):
             sizes = shard_sizes(min(batch_size, shots - start), len(shards))
             # Every shard's noise and ladder are enqueued before any copy.
-            batches = [self._sample_batch(n, shard=s) if n else None for s, n in zip(shards, sizes)]
+            batches = [self._sample_batch(n, stage, shard=s) if n else None for s, n in zip(shards, sizes)]
             at = start
             for shard, sink, n, batch in zip(shards, to_host, sizes, batches):
                 if n:
@@ -933,8 +997,12 @@ class _CompiledSamplerBase:
                     with on_device(shard.device):
                         sink.push(out if fold_d is None else out ^ fold_d, at)
                 at += n
+            if stage:
+                stage("push")
         for sink in to_host:
             sink.close()
+        if stage:
+            stage("close")
         self.last_norm_deviation = _worst(deviations)
         _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
@@ -945,7 +1013,7 @@ class _CompiledSamplerBase:
         deviation), both on its device. ``stage(name)``, if given, is called
         as each ends, with "noise" or "ladder" (a profiler's hook; "d2h" and
         "host" are :class:`_RowsToHost`'s push and close)."""
-        shard = shard or self._shards[0]
+        shard = shard or self._shards_for(shots)[0]
         mark = stage or (lambda name: None)
         with on_device(shard.device):
             f_params = shard.channels.sample(shard.generator, shots)
@@ -982,7 +1050,7 @@ class _CompiledSamplerBase:
         n_out, nd = self._program.num_outputs, self._num_detectors
         if shots == 0:
             return np.empty((0, n_out), dtype=np.bool_)
-        batch_size = self._resolve_batch_size(shots, batch_size)
+        batch_size, shards = self._plan_batches(shots, batch_size)
         fold_kept, fold_dropped = np.zeros(n_out, np.bool_), np.zeros(n_out, np.bool_)
         if fold_detector_reference or fold_observable_reference:
             reference = self._reference_sample()
@@ -994,7 +1062,6 @@ class _CompiledSamplerBase:
         post = postselection_mask & self._direct_detector_mask
 
         result = np.empty((shots, n_out), dtype=np.bool_)
-        shards = self._shards
         chunk = ceil(batch_size / len(shards))
         runs, first = [], 0
         for shard, n in zip(shards, shard_sizes(shots, len(shards))):
@@ -1178,10 +1245,11 @@ class CompiledStateProbs(_CompiledSamplerBase):
         if state.shape != (expected,):
             raise ValueError(f"state must have shape ({expected},), got {state.shape}")
         f_samples = self._device_channels.sample(self._generator, batch_size)
-        if self._mesh is None:
+        devices = [shard.device for shard in self._shards_for(batch_size)]
+        if len(devices) == 1:
             return self._probability_body(f_samples, state).cpu().numpy()
         parts = []
-        for device, f in zip(self._mesh.devices, torch.tensor_split(f_samples, self._mesh.size)):
+        for device, f in zip(devices, torch.tensor_split(f_samples, len(devices))):
             if f.shape[0]:
                 with on_device(device):
                     parts.append(self._probability_body(f.to(device), state, self._replicas[device]))
