@@ -164,7 +164,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
     launched, every output's mean within 4 * sqrt(2) pooled sigma of the
     exact run's; then the 1084-graph rung alone at 2^20 + 1 rows: K5 equal
     to the plain exact evaluator bit for bit and K1 within rtol 1e-5 of the
-    row's mass, each timed beside its bound.
+    row's mass, each timed beside its bound;
+25. batch planning, on the samplers of phases 4 (d3 f32), 7 (2-check
+    exact), 10 (postselected 2-check f32), 12 (1-check f32) and 24 (grown
+    exact and f32), not built again: each one's default batch
+    (``DEFAULT_ROWS_PER_CARD`` or its memory budget, whichever is less) and
+    the model's bytes a row (``sampler._peak_bytes_per_sample``); one batch
+    of that size by default, whose peak device memory above what was
+    allocated before (``torch.cuda.max_memory_allocated`` after
+    ``reset_peak_memory_stats``) must be at most the model's bytes times the
+    rows, and the ratio of the two; the shots/s of default calls beside
+    calls at ``batch_size=2**20``, in turns, and beside the phase's own.
 
 Phases 4, 7, 10, 12, 16, 20 and 23 sample through the pipelined batch loop
 (``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
@@ -236,6 +246,7 @@ LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, g
 LONG_ROW_COUNT = (1 << 16) + 1
 DEVICE = "cuda"
 GROWN_SHOTS = 4 * MAIN_BATCH  # phase 24: f32 shots of noisy grown cultivation
+PLAN_CALLS = 2  # phase 25: calls a path and way, in turns
 
 # Peaks of one H100 SXM (NVIDIA's data sheet; 132 SMs at a boost clock of
 # 1.98 GHz): HBM at 3.35 TB/s; f32 at 67 TFLOP/s outside the tensor cores
@@ -575,9 +586,10 @@ def state_probs_path(circuit) -> dict:
     return launches
 
 
-def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
+def exact_sampling_path(cultivation, d3, planned: dict) -> tuple[dict, dict]:
     """Phase 7: exact-mode sampling of 2-check cultivation, its replay, and
-    one batch of d3 distillation in exact mode."""
+    one batch of d3 distillation in exact mode. The cultivation sampler and
+    its rate go into ``planned`` (phase 25)."""
     from tsim_tpu_torch.kernels import exact_eval as kernel
     from tsim_tpu_torch.sampler import sample_program_with_deviation
 
@@ -605,6 +617,7 @@ def exact_sampling_path(cultivation, d3) -> tuple[dict, dict]:
         f"{CULTIVATION_SHOTS / wall:.0f} shots/s (batch {MAIN_BATCH})",
         flush=True,
     )
+    planned["2-check exact (phase 7)"] = (sampler, CULTIVATION_SHOTS / wall, {})
 
     r = exported.replay
     f = sampler._device_channels.sample_from_uniforms(torch.from_numpy(r["noise_uniforms"]).to(DEVICE))
@@ -842,12 +855,13 @@ def reference_fold(cultivation) -> np.ndarray:
 
 
 def postselected_path(cultivation, label: str, expected, random_outputs: np.ndarray,
-                      per_term: bool = False, mesh=None) -> dict:
+                      per_term: bool = False, mesh=None, planned: dict | None = None) -> dict:
     """Phases 10, 11 and 23: postselected f32 sampling of 2-check cultivation
     with both reference samples, checked against tsim_tpu's export.
     ``random_outputs`` marks the outputs that are random without noise;
     ``per_term`` compiles the sampler onto the per-term kernels; ``mesh``
-    shards it (the card otherwise)."""
+    shards it (the card otherwise). ``planned``, if given, takes the sampler,
+    its rate and the call's options (phase 25)."""
     from tsim_tpu_torch.compile import sample_eval
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
@@ -881,6 +895,9 @@ def postselected_path(cultivation, label: str, expected, random_outputs: np.ndar
     survivors = int(keep.sum())
     print(f"{label}: {CULTIVATION_SHOTS} shots in {wall:.3f} s = {CULTIVATION_SHOTS / wall:.0f} shots/s, "
           f"{survivors} survivors = {survivors / wall:.0f} survivors/s (batch {MAIN_BATCH})", flush=True)
+    if planned is not None:
+        planned[f"{label} (phase 10)"] = (
+            sampler, CULTIVATION_SHOTS / wall, {k: v for k, v in kw.items() if k != "batch_size"})
     meta, replay = exported.meta, exported.replay
     check_z(f"{label}: survivor fraction", keep.mean(), CULTIVATION_SHOTS,
             meta["survivor_fraction"], int(meta["reference_shots"]))
@@ -903,8 +920,9 @@ def postselected_path(cultivation, label: str, expected, random_outputs: np.ndar
     return launches
 
 
-def checks1_path(cultivation) -> dict:
-    """Phase 12: 1-check cultivation in f32 mode."""
+def checks1_path(cultivation, planned: dict) -> dict:
+    """Phase 12: 1-check cultivation in f32 mode; the sampler and its rate
+    go into ``planned`` (phase 25)."""
     from tsim_tpu_torch.kernels import sample_eval as kernel
 
     exported = cultivation.load()
@@ -926,6 +944,7 @@ def checks1_path(cultivation) -> dict:
     if not (math.isfinite(dev_norm) and dev_norm <= NORM_TOL):
         fail("cultivation 1-check: norm deviation above the f32 tolerance")
     check_means("cultivation 1-check", out, exported)
+    planned["1-check f32 (phase 12)"] = (sampler, CULTIVATION_SHOTS / wall, {"append_observables": True})
     return launches
 
 
@@ -1533,7 +1552,7 @@ def sharded_phase(circuit, cultivation, random_outputs, unsharded_means, unshard
             fail(f"sharded state probs: {device} did not launch exact_small and approx_wide")
 
 
-def grown_phase(dev) -> tuple[dict, dict]:
+def grown_phase(dev, planned: dict) -> tuple[dict, dict]:
     """Phase 24: noisy 2-check grown cultivation (``cultivation_d3_grown(
     p=0.001, checks=2)``, 12 rungs up to 1084 graphs), compiled on this host
     and sampled on the card: exact mode, 2^20 shots after a warm-up batch
@@ -1542,7 +1561,8 @@ def grown_phase(dev) -> tuple[dict, dict]:
     sqrt(2) pooled sigma of the exact run's); then the 1084-graph rung alone
     at 2^20 + 1 rows: K5 against the plain exact evaluator bit for bit, K1
     against the f32 plain version within rtol 1e-5 of the row's mass, each
-    timed beside its bound. Returns (exact launches, f32 launches)."""
+    timed beside its bound. Returns (exact launches, f32 launches); the two
+    samplers and their rates go into ``planned`` (phase 25)."""
     import warnings
 
     from tsim_tpu_torch.compile.evaluate import evaluate_abs
@@ -1599,6 +1619,7 @@ def grown_phase(dev) -> tuple[dict, dict]:
         if not (math.isfinite(dev_norm) and dev_norm <= tol):
             fail(f"grown {mode}: norm deviation above {tol}")
         runs[mode] = (out.mean(axis=0, dtype=np.float64), shots, launches)
+        planned[f"grown {mode} (phase 24)"] = (sampler, shots / wall, {})
         del sampler, out
     check_z("grown f32", runs["f32"][0], runs["f32"][1], runs["exact"][0], runs["exact"][1], "the exact run")
 
@@ -1633,6 +1654,47 @@ def grown_phase(dev) -> tuple[dict, dict]:
     del t, x, got, want, mass, err
     torch.cuda.empty_cache()
     return runs["exact"][2], runs["f32"][2]
+
+
+def planning_phase(planned: dict) -> None:
+    """Phase 25: the batch planning of each path in ``planned`` (the samplers
+    of phases 4, 7, 10, 12 and 24, not built again): the default batch and
+    the model's bytes a row (``sampler._peak_bytes_per_sample``); one batch
+    of that size by default, whose peak device memory above what was
+    allocated before (the tables) must be at most the model's bytes times
+    its rows; then ``PLAN_CALLS`` calls of 4 default batches (at least
+    4 * 2^20 shots) by default and at ``batch_size=2**20``, in turns, shots/s
+    of each beside the phase's own 2^20 rate."""
+    for label, (sampler, phase_rate, kw) in planned.items():
+        post = "postselection_mask" in kw
+        batch = sampler._estimate_batch_size(postselected=post)
+        model = sampler._peak_bytes_per_sample(sampler.device, postselected=post)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        base_requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        sampler.sample(batch, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base_requested
+        print(f"planning {label}: default batch {batch} rows, modelled {model} bytes a row "
+              f"({model * batch / 2**30:.3f} GiB); one default batch: peak {peak} bytes above the "
+              f"{base} allocated before ({peak / batch:.1f} a row; requested {requested}), measured / "
+              f"modelled {peak / (model * batch):.3f}", flush=True)
+        if peak > model * batch:
+            fail(f"planning {label}: a default batch of {batch} rows held {peak} bytes, above the "
+                 f"model's {model} a row ({model * batch})")
+        shots = 4 * max(batch, MAIN_BATCH)
+        rates = {"default": [], "2^20": []}
+        for way in ("default", "2^20", "2^20", "default") * (PLAN_CALLS // 2):
+            t0 = time.perf_counter()
+            sampler.sample(shots, batch_size=None if way == "default" else MAIN_BATCH, **kw)
+            torch.cuda.synchronize()
+            rates[way].append(shots / (time.perf_counter() - t0))
+        print(f"planning {label}: {shots} shots, shots/s by default "
+              + " / ".join(f"{r:.0f}" for r in rates["default"]) + ", at batch 2^20 "
+              + " / ".join(f"{r:.0f}" for r in rates["2^20"])
+              + f" (the phase's own at 2^20: {phase_rate:.0f})", flush=True)
 
 
 def main() -> None:
@@ -1741,6 +1803,8 @@ def main() -> None:
 
     check_means("slice", out, exported)
     main_means, main_rate = out.mean(axis=0, dtype=np.float64), MAIN_SHOTS / wall
+    # (sampler, its phase's shots/s at batches of 2^20, its call's options) of each path phase 25 plans
+    planned = {"d3 f32 (phase 4)": (sampler, main_rate, {"append_observables": True})}
     del sampler, out
     torch.cuda.empty_cache()
 
@@ -1762,7 +1826,7 @@ def main() -> None:
     paths = [state_probs_path(circuit)]
 
     # ---- phase 7: exact-mode sampling -----------------------------------
-    paths += exact_sampling_path(cultivation, circuit)
+    paths += exact_sampling_path(cultivation, circuit, planned)
     exact_launches = {k: sum(p[k] for p in paths) for k in exact_err}
 
     # ---- phase 8: per-term kernels vs plain version ----------------------
@@ -1780,7 +1844,7 @@ def main() -> None:
     f32_paths = [launches]
     random_outputs = reference_fold(cultivation)
     packed = postselected_path(
-        cultivation, "postselected cultivation", ["wide", "small", "self_test"], random_outputs
+        cultivation, "postselected cultivation", ["wide", "small", "self_test"], random_outputs, planned=planned
     )
     if packed["per_term_wide"] or packed["per_term_small"]:
         fail("postselected cultivation: the packed path launched per-term kernels")
@@ -1794,7 +1858,7 @@ def main() -> None:
     f32_paths.append(per_term)
 
     # ---- phase 12: 1-check cultivation in f32 mode -----------------------
-    f32_paths.append(checks1_path(cultivation_checks1))
+    f32_paths.append(checks1_path(cultivation_checks1, planned))
 
     # ---- phase 13: the stage ablation ------------------------------------
     ablate_launches, ablate_timing, ablate_err = ablation_path(
@@ -1838,9 +1902,12 @@ def main() -> None:
     sharded_phase(circuit, cultivation, random_outputs, main_means, launches, main_rate)
 
     # ---- phase 24: noisy grown cultivation ---------------------------------
-    grown_exact, grown_f32 = grown_phase(dev)
+    grown_exact, grown_f32 = grown_phase(dev, planned)
     exact_launches = {k: exact_launches[k] + grown_exact.get(k, 0) for k in exact_launches}
     f32_launches = {k: f32_launches[k] + grown_f32.get(k, 0) for k in f32_launches}
+
+    # ---- phase 25: batch planning ------------------------------------------
+    planning_phase(planned)
 
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed

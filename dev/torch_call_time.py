@@ -2,7 +2,7 @@
 (tsim_tpu_torch), for one tree or for two in turns.
 
     python3 dev/torch_call_time.py [--tree .] [--reps 30] [--paths]
-    python3 dev/torch_call_time.py --compare build/parent . [--paths]
+    python3 dev/torch_call_time.py --compare build/parent . [--paths | --defaults]
 
 By default, one-batch calls of d3 distillation's f32 detector sampler: for
 1024, 16,384 and 2^20 shots, one sampler makes a warm-up call and then
@@ -20,6 +20,14 @@ postselected, both reference samples) and 2-check cultivation in exact mode
 warm-up batch, then ``--reps`` calls (default 3), each timed on the host's
 clock to a ``torch.cuda.synchronize()``. Printed: the median, least and
 greatest shots/s.
+
+With ``--defaults``, the same paths and noisy grown cultivation
+(``models.cultivation_d3_grown(p=0.001, checks=2)``, compiled on this host;
+f32 and exact) with no ``batch_size``, as a user calls ``sample()``, and at
+``batch_size=2**20``, in turns, 2^22 shots a call: the default batch's rate
+beside the explicit one's, and the default batch the tree chose
+(``_plan_batches``; of the plain path, also for the postselected one). Set
+``TSIM_TPU_COMPILE_CACHE_DIR`` to compile grown cultivation once a tree.
 
 With ``--compare A B`` the script runs itself on tree A, B, B, A (a process
 each, so that each imports its own ``tsim_tpu_torch`` and builds its own
@@ -116,16 +124,60 @@ def measure_paths(reps: int) -> dict:
     return results
 
 
+def measure_defaults(reps: int) -> dict:
+    """{path, way: [median shots/s, least, greatest]}, ways "default" and
+    "2^20", and {path, "default batch": [rows] * 3}."""
+    import numpy as np
+    import torch
+
+    from tsim_tpu_torch import models as built
+
+    exported = _exported_models()
+    shots = 1 << 22
+    postselect = {
+        "postselection_mask": np.ones(11, bool), "use_detector_reference_sample": True,
+        "use_observable_reference_sample": True, "separate_observables": True,
+    }
+    grown = built.cultivation_d3_grown(p=0.001, checks=2)
+    paths = {
+        "d3 f32": (exported.distillation_d3(p=0.05), {}, {"append_observables": True}),
+        "1-check cultivation f32": (exported.cultivation_d3(p=0.001, checks=1), {}, {"append_observables": True}),
+        "postselected cultivation f32": (exported.cultivation_d3(p=0.001, checks=2), {}, postselect),
+        "exact cultivation": (exported.cultivation_d3(p=0.001, checks=2), {"evaluation": "exact"}, {}),
+        "grown f32": (grown, {}, {}),
+        "grown exact": (grown, {"evaluation": "exact"}, {}),
+    }
+    results = {}
+    for label, (circuit, options, kwargs) in paths.items():
+        sampler = circuit.compile_detector_sampler(seed=0, device="cuda", **options)
+        sampler.sample(BATCH, batch_size=BATCH, **kwargs)  # warm-up
+        torch.cuda.synchronize()
+        rates = {"default": [], "2^20": []}
+        for _ in range(reps):
+            for way in ("default", "2^20"):
+                t0 = time.perf_counter()
+                sampler.sample(shots, batch_size=None if way == "default" else BATCH, **kwargs)
+                torch.cuda.synchronize()
+                rates[way].append(shots / (time.perf_counter() - t0))
+        for way, values in rates.items():
+            results[f"{label}, {way}"] = spread(values)
+        results[f"{label}, default batch"] = [sampler._plan_batches(shots, None)[0]] * 3
+        del sampler
+    return results
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--compare", nargs=2, metavar=("PARENT", "CHANGE"))
     parser.add_argument("--reps", type=int, help="calls timed (default 30, or 3 with --paths)")
     parser.add_argument("--paths", action="store_true", help="time the sampling paths of chip_smoke.py")
+    parser.add_argument("--defaults", action="store_true",
+                        help="time default-batch calls of those paths and grown cultivation")
     parser.add_argument("--json", action="store_true", help="print one JSON object and nothing else")
     args = parser.parse_args()
-    reps = args.reps or (3 if args.paths else 30)
-    unit = "shots/s" if args.paths else "ms"
+    reps = args.reps or (3 if args.paths or args.defaults else 30)
+    unit = "shots/s" if args.paths or args.defaults else "ms"
 
     if args.compare:
         print(card(), flush=True)
@@ -133,7 +185,7 @@ def main() -> None:
         runs = []
         for tree in (parent, change, change, parent):
             cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree, "--reps", str(reps), "--json"]
-            cmd += ["--paths"] if args.paths else []
+            cmd += ["--paths"] if args.paths else ["--defaults"] if args.defaults else []
             done = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
             if done.returncode != 0:
                 sys.exit(f"FAIL: {tree}: {done.stdout[-2000:]}{done.stderr[-4000:]}")
@@ -153,7 +205,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("FAIL: needs a CUDA device")
-    results = (measure_paths if args.paths else measure_calls)(reps)
+    results = (measure_paths if args.paths else measure_defaults if args.defaults else measure_calls)(reps)
     if not args.json:
         print(card())
         for label, (median, least, greatest) in results.items():

@@ -3,6 +3,8 @@ number of cards of a shot mesh, on the cards of this machine.
 
     python3 dev/torch_shard_scaling.py [--calls 3] [--batches 8] [--out build/shard_scaling.json]
     python3 dev/torch_shard_scaling.py --threshold [--calls 3] [--batches 4]
+    python3 dev/torch_shard_scaling.py --auto [--program d3|cultivation|grown] [--calls 3] [--batches 4]
+    python3 dev/torch_shard_scaling.py --sweep [--calls 3]
 
 For each mesh, ``distillation_d3(p=0.05).compile_detector_sampler(seed=0,
 mesh=mesh)`` samples after one warm-up call, ``--calls`` times, with
@@ -27,12 +29,19 @@ one JSON line each with both medians and their ratio.
 
 ``--auto`` measures the rule itself: for batches of 2^18 to 2^21 rows and
 the default batch (no ``batch_size``, 2^22 shots a call), the sampler on
-card 0 alone, on an explicit mesh of every card and under ``mesh="auto"``
-(the shards it took are in the line). ``--program grown`` samples
-``models.cultivation_d3_grown(p=0.001, checks=2)`` (compiled once on this
-host, about a minute) instead of d3, a program whose batches are bound by
-the cards' work rather than by the host. Needs a CUDA device and the
-committed programs.
+card 0 alone, on an explicit mesh of every card and under ``mesh="auto"``;
+each line holds the batch and the shards and cards that the package's own
+planning (``sampler._plan_batches``) took for it. ``--program cultivation``
+samples 2-check cultivation in exact mode, ``--program grown``
+``models.cultivation_d3_grown(p=0.001, checks=2)`` in f32 mode (compiled
+once on this host, about a minute), programs whose batches are bound by the
+cards' work rather than by the host.
+
+``--sweep`` measures what ``sampler.DEFAULT_ROWS_PER_CARD`` rests on: on
+card 0 alone, d3 f32, 2-check cultivation exact and grown cultivation f32 at
+batches of 2^17 to 2^22 rows and at the default batch, 2^24 shots a call at
+each (so that every call is as long, four batches at the largest). Needs a CUDA device and the committed
+programs.
 """
 
 from __future__ import annotations
@@ -60,6 +69,10 @@ def meshes(n_cards: int) -> list[tuple[str, object]]:
 
 
 def sampler_for(program: str, **kw):
+    if program == "cultivation":
+        from tsim_tpu_torch.models.exported import cultivation_d3
+
+        return cultivation_d3(p=0.001, checks=2).compile_detector_sampler(seed=0, evaluation="exact", **kw)
     if program == "grown":
         from tsim_tpu_torch.models import cultivation_d3_grown
 
@@ -71,14 +84,15 @@ def sampler_for(program: str, **kw):
 
 
 def run(label: str, mesh, way: str, calls: int, batches: int, base: int | None = BATCH,
-        program: str = "d3") -> dict:
+        program: str = "d3", default_shots: int = 1 << 22) -> dict:
     """``batches`` batches of ``base`` shots (a shard's with ``per_shard``);
-    ``base`` None: 2^22 shots at the default batch."""
+    ``base`` None: ``default_shots`` at the default batch. The line's
+    ``batch``, ``shards`` and ``cards`` are the package's plan for the call."""
     import torch
 
     shards = 1 if mesh is None or mesh == "auto" else mesh.size
     batch = None if base is None else base * (shards if way == "per_shard" else 1)
-    shots = 1 << 22 if batch is None else batches * batch
+    shots = default_shots if batch is None else batches * batch
     kw = {"device": "cuda:0", "mesh": None} if mesh is None else {"mesh": mesh}
     sampler = sampler_for(program, **kw)
     size, taken = sampler._plan_batches(shots, batch)
@@ -141,6 +155,21 @@ def auto(n_cards: int, calls: int, batches: int, program: str) -> list[dict]:
     return out
 
 
+SWEEP_SHOTS = 1 << 24
+
+
+def sweep(calls: int) -> list[dict]:
+    """One card's shots/s against its batch, by program, SWEEP_SHOTS a call."""
+    out = []
+    for program in ("d3", "cultivation", "grown"):
+        for batch in [1 << k for k in range(17, 23)] + [None]:
+            row = run("unsharded cuda:0", None, "fixed", calls, SWEEP_SHOTS // (batch or 1), batch, program,
+                      SWEEP_SHOTS)
+            out.append(row)
+            print(json.dumps(row), flush=True)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--calls", type=int, default=3)
@@ -148,7 +177,8 @@ def main() -> None:
     parser.add_argument("--out", default="build/shard_scaling.json")
     parser.add_argument("--threshold", action="store_true")
     parser.add_argument("--auto", action="store_true")
-    parser.add_argument("--program", choices=("d3", "grown"), default="d3", help="with --auto")
+    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--program", choices=("d3", "cultivation", "grown"), default="d3", help="with --auto")
     args = parser.parse_args()
 
     import torch
@@ -162,13 +192,15 @@ def main() -> None:
 
     build.build()
     build.load()
-    if args.threshold or args.auto:
+    if args.threshold or args.auto or args.sweep:
         if args.threshold:
             rows = threshold(torch.cuda.device_count(), args.calls, args.batches)
-        else:
+        elif args.auto:
             rows = auto(torch.cuda.device_count(), args.calls, args.batches, args.program)
+        else:
+            rows = sweep(args.calls)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        key = "threshold" if args.threshold else "auto"
+        key = "threshold" if args.threshold else "auto" if args.auto else "sweep"
         Path(args.out).write_text(json.dumps({"cards": smi.stdout.strip().splitlines(), key: rows}, indent=1))
         return
     rows = []

@@ -18,8 +18,12 @@ import torch
 import tsim_tpu
 from dev.export_torch_program import compile_cultivation, compile_d3, export_sampler, jax_replay
 from tsim_tpu_torch import sampler as port_sampler
-from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample
-from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
+from tsim_tpu_torch.compile import exact_eval, sample_eval
+from tsim_tpu_torch.compile.exact_tables import ExactTables
+from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, synthetic_rung
+from tsim_tpu_torch.compile.sample_tables import SampleTables
+from tsim_tpu_torch.kernels import exact_eval as exact_kernel
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3, distillation_d5
 from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
 from tsim_tpu_torch.ops.gf2 import static_take_columns
 
@@ -180,8 +184,159 @@ def test_norm_deviation_check():
 
 def test_default_batch_size_on_cpu(d3):
     s = d3.compile_detector_sampler(seed=0, device="cpu")
-    assert s._estimate_batch_size() >= 1
+    assert s._estimate_batch_size() == min(s._card_rows(), port_sampler.DEFAULT_ROWS_PER_CARD) >= 1
     assert s.sample(100).shape == (100, 15)
+
+
+# ------------------------------------------------- the batch's memory model
+
+COMMITTED = {
+    "d3": lambda: distillation_d3(p=0.05),
+    "d5": lambda: distillation_d5(p=0.02),
+    "checks1": lambda: cultivation_d3(p=0.001, checks=1),
+    "checks2": lambda: cultivation_d3(p=0.001, checks=2),
+}
+CARD = torch.device("cuda:0")
+FREE_80GB = 79 * 10**9  # free bytes of an idle 80 GB card
+
+
+def _xla_model_bytes(program, noise_peak: int, num_f: int) -> int:
+    """tsim_tpu's model of a row (``tsim_tpu/sampler.py:777-791``), which
+    the port used before: the (B, G, T) intermediate XLA materialises."""
+    peak = max(8 * num_f, noise_peak)
+    for comp in program.components:
+        for c in comp.compiled_scalar_graphs:
+            largest = max(np.shape(c.node_phases.phases)[0] * 16, np.shape(c.halfpi_phases.coeffs)[0] * 4,
+                          np.shape(c.pi_products.psi_const)[0] * 4, np.shape(c.phase_pairs.alpha)[0] * 16)
+            peak = max(peak, c.num_graphs * largest * 3)
+    return peak
+
+
+@pytest.mark.parametrize("evaluation", ["f32", "exact"])
+@pytest.mark.parametrize("program", sorted(COMMITTED))
+def test_default_batch_on_an_80_gb_card_is_the_ceiling(program, evaluation, monkeypatch):
+    """The sampler as if on a card with 79 GB free: one batch of
+    DEFAULT_ROWS_PER_CARD rows by default, plain or postselected, where the
+    XLA model gave 178,700 rows (2-check cultivation) to 3,994,741 (d3)."""
+    s = COMMITTED[program]().compile_detector_sampler(seed=0, device="cpu", evaluation=evaluation)
+    s._shards = [dataclasses.replace(s._solo, device=CARD)]
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (FREE_80GB, 80 * 10**9))
+    ceiling = port_sampler.DEFAULT_ROWS_PER_CARD
+    assert s._card_rows() >= s._card_rows(postselected=True) > ceiling
+    assert s._estimate_batch_size() == s._estimate_batch_size(postselected=True) == ceiling
+    assert s._plan_batches(8 * ceiling, None) == (ceiling, s._shards)
+    assert s._plan_batches(8 * ceiling, None, postselected=True)[0] == ceiling
+    old = (FREE_80GB // 2) // _xla_model_bytes(s._program, 16 * s._device_channels.num_channels,
+                                                s._device_channels.num_f)
+    assert old != ceiling
+
+
+def _peak_bytes(fn) -> int:
+    """The most bytes the CPU allocator held at once while ``fn()`` ran, above
+    what it held before: the profiler's allocation events (a free is one of
+    negative size) summed in time order. On one thread: the profiler is
+    slow to trace the CPU's parallel kernels, and the bytes do not change."""
+    from torch._C._profiler import _EventType
+    from torch.profiler import ProfilerActivity, profile
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+            fn()
+    finally:
+        torch.set_num_threads(threads)
+    nodes, events = list(prof.profiler.kineto_results.experimental_event_tree()), []
+    while nodes:
+        node = nodes.pop()
+        nodes.extend(node.children)
+        if node.tag == _EventType.Allocation:
+            events.append((node.start_time_ns, node.extra_fields.alloc_size))
+    live = peak = 0
+    for _, size in sorted(events, key=lambda e: e[0]):
+        live += size
+        peak = max(peak, live)
+    return peak
+
+
+def _card_glue(tables, x):
+    """``evaluate_abs_sample`` as a card runs it, on the CPU: the kernels'
+    outputs (zeros of their shapes, ``kernels/``) through the dispatch's
+    own code after them."""
+    rows = x.shape[0]
+    if tables.num_graphs == 0:
+        return torch.zeros(rows)
+    if isinstance(tables, ExactTables):
+        n = exact_kernel.num_tiles(tables.num_graphs)
+        if tables.approximate:
+            return exact_eval.approx_magnitude(torch.zeros((n, rows, 2)))
+        return exact_eval.combine_partials(torch.zeros((n, rows, 4), dtype=torch.int32),
+                                           torch.zeros((n, rows), dtype=torch.int32))
+    return sample_eval._magnitude(torch.zeros((rows, 2)), tables.bias)
+
+
+MODEL_ROWS = 2048
+CALL_BYTES = 256  # a call's scalar temporaries, the same at any number of rows
+
+
+@pytest.mark.parametrize("device", ["cpu", "card"])
+@pytest.mark.parametrize("evaluation", ["f32", "exact"])
+@pytest.mark.parametrize("program", ["d3", "checks1"])
+def test_modelled_bytes_bound_a_seeded_batch(program, evaluation, device, monkeypatch):
+    """What a pipelined call of two batches and a postselected call of two
+    chunks allocate on the CPU is at most the model's bytes a row times the
+    rows: with the plain versions against the CPU's count, and with the
+    kernels' outputs and the dispatch's code after them against a card's."""
+    s = COMMITTED[program]().compile_detector_sampler(seed=3, device="cpu", evaluation=evaluation)
+    if device == "card":
+        monkeypatch.setattr(port_sampler, "evaluate_abs_sample", _card_glue)
+    model = s._peak_bytes_per_sample(torch.device("cpu") if device == "cpu" else CARD)
+    post = s._peak_bytes_per_sample(torch.device("cpu") if device == "cpu" else CARD, postselected=True)
+    mask = np.ones(s._num_detectors, bool)
+    B = MODEL_ROWS
+    loop = _peak_bytes(lambda: s.sample(2 * B, batch_size=B, use_detector_reference_sample=True))
+    postselected = _peak_bytes(lambda: s.sample(2 * B, batch_size=B, postselection_mask=mask))
+    assert loop <= model * B
+    assert postselected <= post * B
+    # The count is no loose bound: the measured peak is most of it.
+    assert loop > model * B / 2
+
+
+EVALUATED_RUNGS = [(1, 5, (0, 0, 0, 0)), (3, 9, (1, 0, 0, 0)), (40, 12, (0, 6, 0, 0)), (40, 12, (0, 0, 6, 0)),
+                   (40, 12, (0, 0, 0, 6)), (40, 12, (7, 0, 0, 0)), (100, 30, (3, 3, 3, 3)),
+                   (200, 20, (1, 9, 1, 1)), (50, 70, (10, 2, 2, 5)), (300, 16, (2, 2, 12, 1))]
+
+
+@pytest.mark.parametrize("graphs,params,terms", EVALUATED_RUNGS)
+def test_evaluator_counts_bound_what_each_allocates(graphs, params, terms):
+    """Each evaluator's bytes a row bound what it allocates for a seeded
+    rung: the f32 and exact plain versions (the CPU's count), and on a
+    card the kernels' outputs with the dispatch's code after them (exact:
+    with and without approximate floatfactors)."""
+    rung = synthetic_rung(graphs, graphs, params, terms)
+    x = torch.from_numpy(np.random.default_rng(graphs).integers(0, 2, (MODEL_ROWS, params), dtype=np.uint8))
+    cpu = torch.device("cpu")
+    f32 = SampleTables(rung)
+    exact = ExactTables(rung)
+    approx = ExactTables(dataclasses.replace(rung, prefactor=dataclasses.replace(
+        rung.prefactor, has_approximate_floatfactors=True)))
+    assert approx.approximate and not exact.approximate
+    for tables in (f32, approx, exact):
+        got = _peak_bytes(lambda: evaluate_abs_sample(tables, x))
+        assert got <= sample_eval.bytes_per_row(tables, cpu) * MODEL_ROWS + CALL_BYTES
+        got = _peak_bytes(lambda: _card_glue(tables, x))
+        assert got <= sample_eval.bytes_per_row(tables, CARD) * MODEL_ROWS + CALL_BYTES
+
+
+@pytest.mark.parametrize("program", sorted(COMMITTED))
+def test_noise_draw_count_bounds_what_it_allocates(program):
+    """The noise draw's bytes a shot bound what ``sample`` allocates, packed
+    (d3, 1-check) and by bitplanes (d5, 2-check), and are most of it."""
+    s = COMMITTED[program]().compile_detector_sampler(seed=0, device="cpu")
+    channels = s._device_channels
+    assert channels.packed == (program in ("d3", "checks1"))
+    got = _peak_bytes(lambda: channels.sample(s._generator, MODEL_ROWS))
+    assert 0.9 * channels.peak_bytes_per_shot * MODEL_ROWS < got <= channels.peak_bytes_per_shot * MODEL_ROWS
 
 
 @pytest.fixture(scope="module")

@@ -319,7 +319,19 @@ def test_checkpoint_of_a_missing_mesh_device_names_it(tmp_path):
         CompiledDetectorSampler.load(path)
 
 
-# ------------------------------------- "auto": cards by the rows of a batch
+# ----------------------- "auto": cards by the device work of a batch
+
+
+@pytest.fixture(scope="module")
+def d3_work():
+    """d3 distillation's device work a row, the reference of "auto"'s rule."""
+    return D3.compile_detector_sampler(seed=0, device="cpu")._seconds_per_row()
+
+
+def test_d3_is_the_reference_work(d3_work):
+    assert port_sampler.AUTO_MIN_ROWS_PER_CARD == 2**19
+    assert d3_work == pytest.approx(port_sampler.AUTO_REFERENCE_SECONDS_PER_ROW, rel=1e-12)
+    assert d3_work * sample_eval.F32_OPS_PER_S == pytest.approx(10_140)
 
 
 @pytest.mark.parametrize(
@@ -327,9 +339,39 @@ def test_checkpoint_of_a_missing_mesh_device_names_it(tmp_path):
     [(1, 4, 1), (2**19, 4, 1), (2**20 - 1, 4, 1), (2**20, 4, 2), (3 * 2**19, 4, 3),
      (2**21, 4, 4), (2**24, 4, 4), (2**24, 2, 2), (2**21, 8, 4), (2**20, 1, 1)],
 )
-def test_auto_gives_each_card_its_minimum_rows(rows, cards, want):
-    assert port_sampler.AUTO_MIN_ROWS_PER_CARD == 2**19
-    assert port_sampler.auto_cards(rows, cards, card_rows=2**40) == want
+def test_auto_gives_each_card_its_minimum_rows(rows, cards, want, d3_work):
+    # d3 keeps 2^19 rows a card: its work is the reference.
+    assert port_sampler.auto_cards(rows, cards, card_rows=2**40, seconds_per_row=d3_work) == want
+
+
+@pytest.mark.parametrize(
+    "times,rows,want",
+    [(8, 2**20, 4), (8, 2**18, 1), (8, 2**19, 2), (8, 3 * 2**18, 3), (2, 2**20, 4), (2, 2**19, 2),
+     (0.5, 2**20, 1), (0.5, 2**21, 2), (0.5, 2**22, 4), (1.5, 3 * 2**20, 4)],
+)
+def test_auto_cards_scale_with_the_work_a_row(times, rows, want, d3_work):
+    """A program of ``times`` d3's work a row: 2^19 / times rows a card, at
+    least AUTO_FLOOR_ROWS_PER_CARD = 2^18."""
+    assert port_sampler.AUTO_FLOOR_ROWS_PER_CARD == 2**18
+    assert port_sampler.auto_cards(rows, 4, card_rows=2**40, seconds_per_row=times * d3_work) == want
+
+
+@pytest.mark.parametrize(
+    "program,evaluation,want",
+    [("d3", "f32", [1, 1, 2, 4]), ("d3", "exact", [1, 2, 4, 4]), ("checks1", "f32", [1, 1, 2, 4]),
+     ("checks2", "f32", [1, 2, 4, 4]), ("checks2", "exact", [1, 2, 4, 4])],
+)
+def test_auto_cards_of_the_committed_programs(program, evaluation, want):
+    """Cards of four at batches of 2^18 to 2^21 rows: 2-check cultivation,
+    f32 and exact, takes every card at 2^20 as the memory budget alone made
+    it do before, by its work; d3 and 1-check cultivation keep the rows rule."""
+    from tsim_tpu_torch.models.exported import cultivation_d3
+
+    circuit = {"d3": D3, "checks1": cultivation_d3(p=0.001, checks=1),
+               "checks2": cultivation_d3(p=0.001, checks=2)}[program]
+    work = circuit.compile_detector_sampler(seed=0, device="cpu", evaluation=evaluation)._seconds_per_row()
+    got = [port_sampler.auto_cards(2**k, 4, card_rows=2**40, seconds_per_row=work) for k in range(18, 22)]
+    assert got == want
 
 
 @pytest.mark.parametrize(
@@ -337,8 +379,8 @@ def test_auto_gives_each_card_its_minimum_rows(rows, cards, want):
     [(2**20, 4, 2**18, 4), (2**20, 4, 2**19, 2), (2**20, 4, 3 * 2**18, 2), (3 * 2**17, 4, 2**17, 3),
      (100, 4, 30, 4), (100, 4, 50, 2), (100, 4, 100, 1), (10**9, 4, 10, 4), (2**22, 2, 2**20, 2)],
 )
-def test_auto_takes_more_cards_where_one_card_budget_is_exceeded(rows, cards, card_rows, want):
-    k = port_sampler.auto_cards(rows, cards, card_rows)
+def test_auto_takes_more_cards_where_one_card_budget_is_exceeded(rows, cards, card_rows, want, d3_work):
+    k = port_sampler.auto_cards(rows, cards, card_rows, d3_work)
     assert k == want
     # No card gets more than its budget unless every card is taken.
     assert max(shard_sizes(rows, k)) <= card_rows or k == cards
@@ -346,9 +388,13 @@ def test_auto_takes_more_cards_where_one_card_budget_is_exceeded(rows, cards, ca
 
 @pytest.fixture
 def auto_replicas(monkeypatch):
-    """"auto" resolving to four CPU replicas, each needing 64 rows a batch."""
+    """"auto" resolving to four CPU replicas, each needing 64 rows a batch
+    (every program given d3's work a row)."""
     monkeypatch.setattr(port_sampler, "_auto_mesh", lambda: ShotMesh(["cpu"] * 4))
     monkeypatch.setattr(port_sampler, "AUTO_MIN_ROWS_PER_CARD", 64)
+    monkeypatch.setattr(port_sampler, "AUTO_FLOOR_ROWS_PER_CARD", 1)
+    monkeypatch.setattr(port_sampler._CompiledSamplerBase, "_seconds_per_row",
+                        lambda self: port_sampler.AUTO_REFERENCE_SECONDS_PER_ROW)
     return monkeypatch
 
 
@@ -370,7 +416,7 @@ def test_auto_draws_the_stream_of_the_cards_a_batch_takes(auto_replicas, batch, 
 def test_auto_batch_and_cards_fit_a_small_card_budget(auto_replicas, shots, batch):
     """A card's memory budget under the rows rule: the default batch is the
     budget times the cards, and no card is given more than its budget."""
-    auto_replicas.setattr(port_sampler._CompiledSamplerBase, "_card_rows", lambda self: 10)
+    auto_replicas.setattr(port_sampler._CompiledSamplerBase, "_card_rows", lambda self, postselected=False: 10)
     c = Circuit(CIRCUIT)
     auto = c.compile_detector_sampler(seed=4)
     size, shards = auto._plan_batches(shots, batch)
@@ -456,12 +502,25 @@ def test_a_device_that_repeats_and_the_sampler_device():
 
 
 def test_batch_estimate_counts_every_shard(monkeypatch):
-    # Four replicas share the CPU's memory: the same rows in all, to rounding.
+    # Four replicas share the CPU's 4 GiB: the same rows in all, to rounding,
+    # each shard's the budget of its share (below DEFAULT_ROWS_PER_CARD).
     pages = {"SC_AVPHYS_PAGES": 1 << 20, "SC_PAGE_SIZE": 4096}
+    monkeypatch.setattr(port_sampler.os, "sysconf", pages.__getitem__)
+    single = D3.compile_detector_sampler(seed=0, device="cpu")
+    unsharded = single._estimate_batch_size()
+    sharded = D3.compile_detector_sampler(seed=0, mesh=ShotMesh(["cpu"] * 4))._estimate_batch_size()
+    assert unsharded == (1 << 31) // single._peak_bytes_per_sample(torch.device("cpu"))
+    assert unsharded < port_sampler.DEFAULT_ROWS_PER_CARD
+    assert unsharded - 4 < sharded <= unsharded and sharded % 4 == 0
+
+
+def test_batch_estimate_is_the_ceiling_on_every_shard(monkeypatch):
+    """With memory to spare each shard takes DEFAULT_ROWS_PER_CARD rows."""
+    pages = {"SC_AVPHYS_PAGES": 1 << 26, "SC_PAGE_SIZE": 4096}
     monkeypatch.setattr(port_sampler.os, "sysconf", pages.__getitem__)
     unsharded = D3.compile_detector_sampler(seed=0, device="cpu")._estimate_batch_size()
     sharded = D3.compile_detector_sampler(seed=0, mesh=ShotMesh(["cpu"] * 4))._estimate_batch_size()
-    assert unsharded - 4 < sharded <= unsharded and sharded % 4 == 0
+    assert unsharded == port_sampler.DEFAULT_ROWS_PER_CARD and sharded == 4 * unsharded
 
 
 def test_fully_direct_programs_ignore_the_mesh():

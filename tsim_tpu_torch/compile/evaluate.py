@@ -80,6 +80,22 @@ def chunk_rows(circuit) -> int:
     return max(1, CHUNK_BYTES // (16 * t * max(int(circuit.num_graphs), 1)))
 
 
+def plain_bytes_per_row(dims, n_params: int, num_graphs: int) -> int:
+    """Bytes a row that :func:`evaluate_abs` holds at its peak on the rows of
+    one chunk (a batch of more rows than a chunk holds less a row), its
+    result included, for a rung of ``dims`` = (T1, T2, T3, T4) term slots.
+    The families are evaluated one after the other, and the one that holds
+    the most sets the peak: a (term, graph) slot takes 64 bytes for a node
+    phase (four (4,) int32 Z[w] arrays: its w^k, their stack, the identity,
+    the masked copy), 80 for a phase pair (three w^k, their sum, the masked
+    copy), 32 for a half-pi phase and 24 for a pi product (int32 parities
+    and their products). Beside it, 160 bytes a graph (the six factors of
+    :func:`_evaluate_parts` as Z[w] with their power, their running product,
+    the graph sum's first tree level) and the rows as float32."""
+    t1, t2, t3, t4 = dims
+    return 4 * n_params + (max(64 * t1, 32 * t2, 24 * t3, 80 * t4) + 160) * max(num_graphs, 1)
+
+
 def exact_sum(circuit, x: torch.Tensor) -> ExactScalarArray:
     """The exact graph sum per row, (4, B) coefficients and (B,) power.
 

@@ -34,7 +34,7 @@ from ..program_io import (
     PiProducts,
     ScalarPrefactor,
 )
-from .exact_eval import evaluate_abs_exact
+from .exact_eval import bytes_per_row as exact_bytes_per_row, evaluate_abs_exact
 from .exact_tables import ExactTables
 from .sample_tables import _SQRT_HALF, SampleTables, sample_eligible, unpack_words
 
@@ -68,6 +68,32 @@ def rung_tables(
     return SampleTables(circuit, per_term)
 
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores; int32 adds, multiplies and logic at 64 results a clock on
+# each of 132 SMs at 1.98 GHz. The sampler's "auto" rule uses only ratios
+# of least_seconds_per_row, so on another card they weigh the two types.
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def least_seconds_per_row(tables: SampleTables | ExactTables) -> float:
+    """The least time a card could take for one row of one evaluation of
+    ``tables``: its term-graph operations over the peak rate of their type,
+    as ``chip_smoke.py``'s ``f32_bound``, ``exact_bound`` and
+    ``approx_bound`` count them, but over every term slot of the tables
+    (``dims``) rather than the live terms. f32: 6 float32 operations a
+    node-phase and phase-pair slot, 12 a graph; exact: 4 int32 operations a
+    node-phase slot, 12 a phase-pair slot, 32 a graph; the approximate
+    finisher: 1 and 12 a slot."""
+    t1, _, _, t4 = tables.dims
+    g = tables.num_graphs
+    if not isinstance(tables, ExactTables):
+        return g * (6 * (t1 + t4) + 12) / F32_OPS_PER_S
+    if tables.approximate:
+        return g * (t1 + 12 * t4) / INT32_OPS_PER_S
+    return g * (4 * t1 + 12 * t4 + 32) / INT32_OPS_PER_S
+
+
 def _rot_staged(re, im, k):
     """(re, im) * w^k for an int32 tensor k in [0, 8), staged on k's bits."""
     b0 = (k & 1) == 1
@@ -81,6 +107,30 @@ def _rot_staged(re, im, k):
 
 
 CHUNK_BYTES = 1 << 30  # largest (rows, T * G) float32 parity array of one row chunk
+
+
+def plain_bytes_per_row(tables: SampleTables) -> int:
+    """Bytes a row that the plain version holds at its peak on the rows of
+    one chunk (a batch of more rows than a chunk holds less a row), its
+    result included: the rows as float32, the parity arrays of every
+    family alive together ((B, T, G) float32, two for the pi products and
+    phase pairs) and two more of the widest while :func:`_product_sum`'s
+    ``parities`` forms one, twelve (B, G) float32 arrays (the running
+    product and the factors' temporaries), the (B, 2) sum and (B,) magnitude."""
+    t1, t2, t3, t4 = tables.dims
+    G = tables.num_graphs
+    return 4 * tables.n_params + 4 * G * (t1 + t2 + 2 * t3 + 2 * t4 + 2 * max(tables.dims)) + 48 * G + 12
+
+
+def bytes_per_row(tables: SampleTables | ExactTables, device: torch.device) -> int:
+    """Bytes a row that one evaluation of ``tables`` (:func:`evaluate_abs_sample`)
+    holds at its peak on ``device``, its (B,) float32 result included. On a
+    card the f32 kernels write (B, 2) float32 and :func:`_magnitude` adds
+    three (B,) temporaries: 20. On the CPU, :func:`plain_bytes_per_row`.
+    Exact tables: ``compile/exact_eval.py::bytes_per_row``."""
+    if isinstance(tables, ExactTables):
+        return exact_bytes_per_row(tables, device)
+    return plain_bytes_per_row(tables) if device.type == "cpu" else 20
 
 
 def sample_product_sum_reference(tables: SampleTables, x: torch.Tensor, *, with_mass: bool = False):

@@ -42,7 +42,6 @@ class DeviceChannelSampler:
         live.sort(key=lambda ch: len(ch.probs))
         self.num_channels = C = len(live)
         self.packed = self.num_f <= 31
-        self.peak_bytes_per_shot = 0
         if not live:
             return
         self.max_k = max(len(ch.unique_col_ids) for ch in live)
@@ -72,7 +71,6 @@ class DeviceChannelSampler:
                     w[:o, ci - s] = (pat @ weights).astype(np.int32)
                 self._words.append(torch.from_numpy(w.ravel()).to(self.device))
             self._bit_shifts = torch.arange(self.num_f, dtype=torch.int32, device=self.device)
-            self.peak_bytes_per_shot = 16 * C
         else:
             s_cat = np.zeros((self.max_k, C, self.num_f), np.float32)
             for ci, ch in enumerate(live):
@@ -80,7 +78,35 @@ class DeviceChannelSampler:
                 s_cat[: len(ids), ci] = sig[ids]
             self._sig = torch.from_numpy(s_cat.reshape(self.max_k * C, self.num_f)).to(self.device)
             self._plane_shifts = torch.arange(self.max_k, dtype=torch.int32, device=self.device)
-            self.peak_bytes_per_shot = 8 * self.max_k * C + 4 * self.num_f
+
+    @property
+    def peak_bytes_per_shot(self) -> int:
+        """Bytes a shot that :meth:`sample` holds at its peak, counted from
+        the shapes it allocates, its result included. The (B, C) float32
+        uniforms and int32 outcome indices stay to the end; beside them the
+        largest of
+
+        * a bucket's compare, (B, Cb, O) bool, and the int32 copy of it that
+          a sum with ``dtype`` makes (5 bytes an entry);
+        * packed: the gather's (B, Cb) index arithmetic (int32, int32, int64)
+          beside the words picked so far; the picked words, their
+          concatenation and the XOR fold's two halves; the picked words and
+          the (B, num_f) int32 shift, its mask and the uint8 result;
+        * bitplanes: the concatenated indices; the (B, k, C) int32 planes
+          with their shift or their float32 copy, and the (B, num_f) float32
+          counts, their int32 cast, its mask and the uint8 result.
+
+        The same code runs on the CPU and on a card, so the count holds on
+        both."""
+        C, F = self.num_channels, self.num_f
+        if C == 0:
+            return F
+        compare = 5 * max((e - s) * o for s, e, o in self.buckets)
+        if self.packed:
+            rest = max(4 * C + 16 * max(e - s for s, e, _ in self.buckets), 12 * C + 8, 4 * C + 9 * F + 4)
+        else:
+            rest = max(4 * C, 8 * self.max_k * C + 13 * F)
+        return 8 * C + max(compare, rest)
 
     def sample(self, generator: torch.Generator, batch: int) -> torch.Tensor:
         """Draw (batch, num_f) uint8 configurations from ``generator``."""

@@ -37,8 +37,11 @@ import torch
 from torch import nn
 
 from .compile.sample_eval import (
+    F32_OPS_PER_S,
+    bytes_per_row,
     check_evaluation,
     evaluate_abs_sample,
+    least_seconds_per_row,
     norm_deviation_tolerance,
     rung_tables,
 )
@@ -247,6 +250,42 @@ def _sample_component(comp: ComponentTables, f_params, generator, uniforms=None)
     return drawn, worst
 
 
+# Bytes a row of a rung's draw, beside its rows: the next uniforms, the
+# ratio p_one / mass and its clamp (float32), and the compare (bool).
+_DRAW_BYTES = 13
+
+
+def _component_bytes_per_row(comp: ComponentTables, device: torch.device) -> int:
+    """Bytes a row that :func:`_sample_component` holds at its peak on
+    ``device``, its drawn bits included: its noise columns, the drawn bits,
+    the pad, and the running mass, last magnitudes, uniforms and bits (13
+    bytes) throughout; the first rung's evaluation; then for each later
+    rung its (B + 1, P) rows beside the largest of their concatenation (the
+    previous rung's rows and the inner copy), the rung's evaluation
+    (``compile/sample_eval.py::bytes_per_row``) and the draw."""
+    rungs = comp.rungs
+    held = len(comp.f_selection) + len(rungs) - 1 + 1 + _DRAW_BYTES
+    peak, prev = bytes_per_row(rungs[0], device), 0
+    for rung in rungs[1:]:
+        width = rung.n_params
+        peak = max(peak, width + max(prev + width, bytes_per_row(rung, device), _DRAW_BYTES))
+        prev = width
+    return held + peak
+
+
+def _ladder_bytes_per_row(tables: ProgramTables, num_f: int, device: torch.device) -> int:
+    """Bytes a row that :func:`sample_program_with_deviation` holds at its
+    peak on ``device``, counted from the shapes it allocates: the (B, num_f)
+    noise rows throughout, beside each component's ladder with the outputs
+    drawn before it (at most num_outputs), or beside the outputs, their
+    concatenation and its reindexed copy."""
+    n_out = tables.num_outputs
+    peak = 3 * n_out
+    for comp in tables.components:
+        peak = max(peak, n_out + _component_bytes_per_row(comp, device))
+    return num_f + peak
+
+
 def sample_program_with_deviation(tables: ProgramTables, f_params, generator, uniforms=None):
     """Sample every output: ((B, num_outputs) uint8 in output order, (1,) max deviation).
 
@@ -413,12 +452,30 @@ def _resolve_device(device) -> torch.device:
     return indexed_device(device)
 
 
-# "auto" gives a card at least this many rows of a batch: below it the one
-# host thread's enqueue of every shard's launches costs more than the cards
-# save. d3 on four H100s, a batch split over k cards against the same batch
-# on one (dev/torch_shard_scaling.py --threshold, PERF.md section 6): 2^18
-# rows a card 0.90x (k = 2) and 0.93x (k = 4), 2^19 1.33x and 1.40x.
+# "auto" gives a card at least this many rows of a batch of d3 distillation
+# (f32), and of another program as many rows as hold the same device work
+# (auto_cards): below it the one host thread's enqueue of every shard's
+# launches costs more than the cards save. d3 on four H100s, a batch split
+# over k cards against the same batch on one (dev/torch_shard_scaling.py
+# --threshold, PERF.md section 6): 2^18 rows a card 0.90x (k = 2) and 0.93x
+# (k = 4), 2^19 1.33x and 1.40x.
 AUTO_MIN_ROWS_PER_CARD = 1 << 19
+# d3 distillation's device work a row (least_seconds_per_row over its f32
+# ladder: 10,140 float32 operations), the work AUTO_MIN_ROWS_PER_CARD holds.
+AUTO_REFERENCE_SECONDS_PER_ROW = 10_140 / F32_OPS_PER_S
+# No program gets fewer rows a card than this: the host's enqueue of a
+# shard's batch costs the same whatever its work, and the least time a row
+# overstates how much more real device time a heavy program takes than d3
+# (2-check cultivation exact: 44x d3's least time, 3x its time a row on one
+# card). On four H100s 2-check exact and grown cultivation f32 split into
+# 2^16 rows a card ran at 0.49x and 0.72x one card, at 2^18 rows a card at
+# 1.23x and 2.2x (dev/torch_shard_scaling.py --auto, PERF.md section 6).
+AUTO_FLOOR_ROWS_PER_CARD = 1 << 18
+# The default batch gives a card at most this many rows, the batch from
+# which a card's rate stops rising (one H100, dev/torch_shard_scaling.py
+# --sweep, PERF.md section 6); beyond it a larger batch only delays the
+# first copy and holds more memory.
+DEFAULT_ROWS_PER_CARD = 1 << 20
 
 
 def _auto_mesh() -> ShotMesh | None:
@@ -429,12 +486,19 @@ def _auto_mesh() -> ShotMesh | None:
     return None
 
 
-def auto_cards(rows: int, cards: int, card_rows: int) -> int:
+def auto_cards(rows: int, cards: int, card_rows: int, seconds_per_row: float) -> int:
     """How many of ``cards`` an "auto" mesh shards a batch of ``rows`` rows
-    over: as many as each get AUTO_MIN_ROWS_PER_CARD rows, and more where
-    fewer would give a card over ``card_rows`` rows (its memory budget, see
+    over, for a program of ``seconds_per_row`` device work a row (the least
+    time of its ladders' evaluations, ``_CompiledSamplerBase._seconds_per_row``):
+    as many as each get the work of AUTO_MIN_ROWS_PER_CARD rows of d3
+    distillation, that is AUTO_MIN_ROWS_PER_CARD * AUTO_REFERENCE_SECONDS_PER_ROW
+    / seconds_per_row rows but at least AUTO_FLOOR_ROWS_PER_CARD (2^19 for
+    d3, 2^18 for a program of twice its work or more), and more where fewer
+    would give a card over ``card_rows`` rows (its memory budget,
     ``_CompiledSamplerBase._card_rows``); at least one, at most ``cards``."""
-    return max(1, min(cards, max(ceil(rows / card_rows), rows // AUTO_MIN_ROWS_PER_CARD)))
+    share = AUTO_MIN_ROWS_PER_CARD * AUTO_REFERENCE_SECONDS_PER_ROW / max(seconds_per_row, 1e-30)
+    share = max(AUTO_FLOOR_ROWS_PER_CARD, round(share))
+    return max(1, min(cards, max(ceil(rows / card_rows), rows // share)))
 
 
 def _resolve_mesh(mesh, device) -> tuple[ShotMesh | None, torch.device]:
@@ -444,9 +508,12 @@ def _resolve_mesh(mesh, device) -> tuple[ShotMesh | None, torch.device]:
     None samples unsharded. "auto" with ``device`` None and two or more
     cards visible resolves to the mesh of every card (:func:`_auto_mesh`),
     whose first card is the sampler's; each batch then takes only the first
-    :func:`auto_cards` of them, as many as each get AUTO_MIN_ROWS_PER_CARD
-    rows (more only where a card's memory budget would otherwise be
-    exceeded), and a batch that one card takes samples unsharded on the
+    :func:`auto_cards` of them, as many as each get a share of the batch's
+    device work: the work of AUTO_MIN_ROWS_PER_CARD rows of d3 distillation
+    (calibrated on four H100s, where d3's 2^19 rows a card first beat one
+    card), so that a program of more work a row takes more cards at the same
+    batch, down to AUTO_FLOOR_ROWS_PER_CARD rows a card (more also where a
+    card's memory budget would otherwise be exceeded), and a batch that one card takes samples unsharded on the
     first card (``_CompiledSamplerBase._plan_batches``). So the stream "auto"
     draws depends on the batch size: a batch of B rows over k cards draws
     shard i's generator for i < k, one on one card the unsharded generator.
@@ -710,7 +777,7 @@ class _CompiledSamplerBase:
         :func:`_resolve_mesh`)."""
         if self._mesh is None or self._mesh_spec != "auto":
             return self._shards
-        k = auto_cards(rows, self._mesh.size, card_rows or self._card_rows())
+        k = auto_cards(rows, self._mesh.size, card_rows or self._card_rows(), self._seconds_per_row())
         return self._shards[:k] if k > 1 else [self._solo]
 
     def __repr__(self) -> str:
@@ -887,23 +954,39 @@ class _CompiledSamplerBase:
             obj._channel_sampler._rng.bit_generator.state = saved["channel_state"]
         return obj
 
-    def _peak_bytes_per_sample(self) -> int:
-        peak = max(8 * self._device_channels.num_f, self._device_channels.peak_bytes_per_shot)
-        for comp in self._program.components:
-            for c in comp.compiled_scalar_graphs:
-                largest = max(
-                    np.shape(c.node_phases.phases)[0] * 16,
-                    np.shape(c.halfpi_phases.coeffs)[0] * 4,
-                    np.shape(c.pi_products.psi_const)[0] * 4,
-                    np.shape(c.phase_pairs.alpha)[0] * 16,
-                )
-                peak = max(peak, c.num_graphs * largest * 3)
-        return max(peak, 1)
+    def _seconds_per_row(self) -> float:
+        """The device work of a row: the least time of its ladders'
+        evaluations on a card (``least_seconds_per_row`` summed over every
+        rung), which :func:`auto_cards` shares out."""
+        return sum(least_seconds_per_row(rung) for comp in self._tables.components for rung in comp.rungs)
 
-    def _card_rows(self) -> int:
+    def _peak_bytes_per_sample(self, device: torch.device, postselected: bool = False) -> int:
+        """Bytes a row of one shard's batch at its peak on ``device`` (the
+        plain versions on a CPU, the kernels on a card), counted from the
+        shapes the batch loop allocates: the previous batch's outputs and
+        their folded copy, which wait for their copy to the host, beside the
+        larger of the noise draw (``DeviceChannelSampler.peak_bytes_per_shot``)
+        and the ladders (:func:`_ladder_bytes_per_row`).
+
+        A postselected chunk (:class:`_PostselectedShard`) holds its noise
+        rows, keep mask and rows; the pool's survivors and their row indices
+        (two chunks' at most, so at least half of the shots must survive for
+        the count to hold); the rows of two chunks that wait for survivors
+        and of one that waits for its copy; and beside them the larger of
+        the next chunk's noise draw with its direct outputs, and the ladder
+        with its folded outputs."""
+        noise = self._device_channels.peak_bytes_per_shot
+        num_f, n_out = self._device_channels.num_f, self._program.num_outputs
+        ladder = _ladder_bytes_per_row(self._tables, num_f, device)
+        if not postselected:
+            return 2 * n_out + max(noise, ladder)
+        held = (num_f + 1 + n_out) + 2 * (num_f + 8) + 3 * n_out
+        return held + max(noise + 2 * n_out, ladder + n_out)
+
+    def _card_rows(self, postselected: bool = False) -> int:
         """The memory budget of a shard's batch in rows: half of the free
-        memory of each device over its shards' peak bytes a shot, the least
-        over the devices."""
+        memory of each device over its shards' peak bytes a row
+        (:meth:`_peak_bytes_per_sample`), the least over the devices."""
         shards_on = collections.Counter(s.device for s in self._shards)
         rows = []
         for device, k in shards_on.items():
@@ -911,12 +994,13 @@ class _CompiledSamplerBase:
                 available, _total = torch.cuda.mem_get_info(device)
             else:
                 available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-            rows.append(int(available * 0.5) // self._peak_bytes_per_sample() // k)
+            rows.append(int(available * 0.5) // self._peak_bytes_per_sample(device, postselected) // k)
         return max(1, min(rows))
 
-    def _estimate_batch_size(self) -> int:
-        """The default batch: a shard's memory budget times the shards."""
-        return self._card_rows() * len(self._shards)
+    def _estimate_batch_size(self, postselected: bool = False) -> int:
+        """The default batch: a shard's memory budget, at most
+        DEFAULT_ROWS_PER_CARD, times the shards."""
+        return min(self._card_rows(postselected), DEFAULT_ROWS_PER_CARD) * len(self._shards)
 
     @staticmethod
     def _validate_shot_args(shots: int, batch_size: int | None) -> None:
@@ -925,16 +1009,20 @@ class _CompiledSamplerBase:
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
 
-    def _plan_batches(self, shots: int, batch_size: int | None) -> tuple[int, list[_Shard]]:
+    def _plan_batches(self, shots: int, batch_size: int | None,
+                      postselected: bool = False) -> tuple[int, list[_Shard]]:
         """(the batch size, the shards each batch is split over), chosen from
-        one reading of the memory budget, so that no card of an "auto" mesh
-        gets more rows than its budget: ``batch_size`` or by default the
-        budget times the shards, evened out over the batches; the shards as
-        :meth:`_shards_for` picks them for a batch of that size."""
+        one reading of the memory budget (of a postselected call's chunks
+        where ``postselected``), so that no card of an "auto" mesh gets more
+        rows than its budget: ``batch_size`` or by default the budget, at
+        most DEFAULT_ROWS_PER_CARD, times the shards, evened out over the
+        batches; the shards as :meth:`_shards_for` picks them for a batch of
+        that size."""
         auto = self._mesh is not None and self._mesh_spec == "auto"
-        card_rows = self._card_rows() if batch_size is None or auto else None
+        card_rows = self._card_rows(postselected) if batch_size is None or auto else None
         if batch_size is None:
-            num_batches = max(1, ceil(shots / (card_rows * len(self._shards))))
+            per_card = min(card_rows, DEFAULT_ROWS_PER_CARD)
+            num_batches = max(1, ceil(shots / (per_card * len(self._shards))))
             batch_size = ceil(shots / num_batches)
         return batch_size, self._shards_for(min(batch_size, shots), card_rows)
 
@@ -1050,7 +1138,7 @@ class _CompiledSamplerBase:
         n_out, nd = self._program.num_outputs, self._num_detectors
         if shots == 0:
             return np.empty((0, n_out), dtype=np.bool_)
-        batch_size, shards = self._plan_batches(shots, batch_size)
+        batch_size, shards = self._plan_batches(shots, batch_size, postselected=True)
         fold_kept, fold_dropped = np.zeros(n_out, np.bool_), np.zeros(n_out, np.bool_)
         if fold_detector_reference or fold_observable_reference:
             reference = self._reference_sample()
