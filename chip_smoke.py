@@ -175,9 +175,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
     ``reset_peak_memory_stats``) must be at most the model's bytes times the
     rows, and the ratio of the two; the shots/s of default calls beside
     calls at ``batch_size=2**20``, in turns, and beside the phase's own.
+    The measured batch runs eagerly (the sampler's captured steps are
+    dropped first); the next call captures the step again, and its peak,
+    the graph's memory beside the replay's copy of its bits, is held to the
+    same model;
+26. the noise-draw kernel (``kernels/csrc/noise_draw.cu``) against the
+    plain draw (``DeviceChannelSampler.sample_from_uniforms``) on the same
+    2^20 rows of seeded uniforms, bit for bit, on the noise of d3
+    distillation, d3 state probabilities, 1- and 2-check cultivation, d5
+    distillation, grown cultivation (phase 24's) and the d7 surface code (W
+    = 11 words, its table read through L1/L2; the plain version runs on
+    2^17-row slices, its bits being row by row); the kernel timed in device
+    time and the plain version with CUDA events, beside the bound ((4C + F)
+    bytes a row over 3.35 TB/s);
+27. the graphed batch step (``sampler._StepGraph``) on the samplers of
+    phases 4 (d3 f32), 12 (1-check f32), 7 (2-check exact) and 24 (grown
+    f32), not built again, and on d3 sharded over every card or two
+    replicas of card 0: after a call of two batches that warms the step
+    up and captures it (its time and the capture's printed), a
+    ``sample()`` of 4 batches of 2^20 that replays
+    every batch equals the eager ``_sample_batch`` steps from the same
+    generator state bit for bit, deviation included; the noise kernel ran
+    in it; shots/s of the same call graphed and eager (graphs switched
+    off), two of each in turns, replays and eager batches a call, and the host's enqueue time of
+    a batch replayed and eager (every shard's, for the mesh).
 
-Phases 4, 7, 10, 12, 16, 20 and 23 sample through the pipelined batch loop
-(``sampler._RowsToHost``); phase 6 draws one batch a call. Each path of
+Phases 4, 7, 10, 12, 16, 20, 23 and 27 sample through the pipelined batch
+loop (``sampler._RowsToHost``), whose full batches replay each shard's
+captured step from a size's third batch on; phase 6 draws one batch a call. Each path of
 phases 4, 6, 7, 10 to 13, 16, 20 to 24 runs with the launch counts
 set to 0 just before it and read just after; a kernel of the path that was not
 launched fails the run (in phase 21, any kernel launched does). The line before the last is a JSON summary of the
@@ -234,6 +259,10 @@ PER_TERM_REPLACES = {
     "per_term_small": "tsim_tpu/compile/pallas_sample.py:383",  # _kernel_sample_t_unpacked (K3b)
 }
 SELF_TEST_REPLACES = "tsim_tpu/compile/pallas_sample.py:405"  # _tpack_probe (K4)
+NOISE_SOURCE = "tsim_tpu_torch/kernels/csrc/noise_draw.cu"
+# No pl.pallas_call: the draw XLA fuses into tsim_tpu's one-jit batch step.
+NOISE_REPLACES = "tsim_tpu/noise/device_channels.py:124"
+NOISE_SLICE = 1 << 17  # phase 26: rows a slice of the plain draw
 ABLATE_REPLACES = "dev/kernel_ablate.py:132"  # run_variant -> _body_ablate (K8)
 CULTIVATION_SHOTS = 4 * MAIN_BATCH
 SMALL_BATCH = 4096  # phase 16: a batch whose wide rungs take the 32-shot block of K1
@@ -620,7 +649,7 @@ def exact_sampling_path(cultivation, d3, planned: dict) -> tuple[dict, dict]:
     planned["2-check exact (phase 7)"] = (sampler, CULTIVATION_SHOTS / wall, {})
 
     r = exported.replay
-    f = sampler._device_channels.sample_from_uniforms(torch.from_numpy(r["noise_uniforms"]).to(DEVICE))
+    f = sampler._device_channels.from_uniforms(torch.from_numpy(r["noise_uniforms"]).to(DEVICE))
     draws = [torch.from_numpy(d).to(DEVICE) for d in r["draw_uniforms"]]
     bits, dev = sample_program_with_deviation(sampler._tables, f, None, uniforms=draws)
     bits = bits.cpu().numpy()
@@ -1174,16 +1203,17 @@ def dem_marginals(dem) -> np.ndarray:
 
 
 def all_launch_counts() -> dict:
-    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+    from tsim_tpu_torch.kernels import exact_eval, noise_draw, sample_eval
 
-    return {**sample_eval.launch_counts, **exact_eval.launch_counts}
+    return {**sample_eval.launch_counts, **exact_eval.launch_counts, **noise_draw.launch_counts}
 
 
 def reset_all_launch_counts() -> None:
-    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+    from tsim_tpu_torch.kernels import exact_eval, noise_draw, sample_eval
 
     sample_eval.reset_launch_counts()
     exact_eval.reset_launch_counts()
+    noise_draw.reset_launch_counts()
 
 
 def surface_code_phase() -> None:
@@ -1427,10 +1457,11 @@ def borderline_rows(tables, f, draws, border: float = 1e-4) -> torch.Tensor:
 
 def device_launches() -> dict:
     """{device: {kernel: launches}} since the counts were last set to 0."""
-    from tsim_tpu_torch.kernels import exact_eval, sample_eval
+    from tsim_tpu_torch.kernels import exact_eval, noise_draw, sample_eval
 
     out = {}
-    for counts in (sample_eval.device_launch_counts, exact_eval.device_launch_counts):
+    for counts in (sample_eval.device_launch_counts, exact_eval.device_launch_counts,
+                   noise_draw.device_launch_counts):
         for device, per in counts.items():
             out.setdefault(device, {}).update({k: v for k, v in per.items() if v})
     return out
@@ -1495,7 +1526,7 @@ def sharded_phase(circuit, cultivation, random_outputs, unsharded_means, unshard
     tables = ProgramTables(exported.program).to(first)
     noise = DeviceChannelSampler(exported.noise, first)
     g = torch.Generator(device=first).manual_seed(23)
-    f = noise.sample_from_uniforms(torch.rand((STEP_ROWS, noise.num_channels), generator=g, device=first))
+    f = noise.from_uniforms(torch.rand((STEP_ROWS, noise.num_channels), generator=g, device=first))
     draws = [torch.rand((STEP_ROWS,), generator=g, device=first)
              for comp in tables.components for _ in comp.rungs[1:]]
     got, dev = sharded_sampler_step(tables, mesh)(f, [None] * mesh.size, draws)
@@ -1669,21 +1700,25 @@ def planning_phase(planned: dict) -> None:
         post = "postselection_mask" in kw
         batch = sampler._estimate_batch_size(postselected=post)
         model = sampler._peak_bytes_per_sample(sampler.device, postselected=post)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        base_requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
-        torch.cuda.reset_peak_memory_stats()
-        sampler.sample(batch, **kw)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base_requested
-        print(f"planning {label}: default batch {batch} rows, modelled {model} bytes a row "
-              f"({model * batch / 2**30:.3f} GiB); one default batch: peak {peak} bytes above the "
-              f"{base} allocated before ({peak / batch:.1f} a row; requested {requested}), measured / "
-              f"modelled {peak / (model * batch):.3f}", flush=True)
-        if peak > model * batch:
-            fail(f"planning {label}: a default batch of {batch} rows held {peak} bytes, above the "
-                 f"model's {model} a row ({model * batch})")
+        # The eager batch, then (plain loop) the call that captures the step.
+        sampler._drop_graphs()
+        for way in ("eager", "captured") if not post else ("eager",):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            base_requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            torch.cuda.reset_peak_memory_stats()
+            sampler.sample(batch, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base_requested
+            steps = "" if post else f", steps {sampler.last_batch_steps}"
+            print(f"planning {label}: default batch {batch} rows, modelled {model} bytes a row "
+                  f"({model * batch / 2**30:.3f} GiB); one default batch ({way}{steps}): peak {peak} bytes "
+                  f"above the {base} allocated before ({peak / batch:.1f} a row; requested {requested}), "
+                  f"measured / modelled {peak / (model * batch):.3f}", flush=True)
+            if peak > model * batch:
+                fail(f"planning {label}: a default batch of {batch} rows held {peak} bytes, above the "
+                     f"model's {model} a row ({model * batch})")
         shots = 4 * max(batch, MAIN_BATCH)
         rates = {"default": [], "2^20": []}
         for way in ("default", "2^20", "2^20", "default") * (PLAN_CALLS // 2):
@@ -1695,6 +1730,149 @@ def planning_phase(planned: dict) -> None:
               + " / ".join(f"{r:.0f}" for r in rates["default"]) + ", at batch 2^20 "
               + " / ".join(f"{r:.0f}" for r in rates["2^20"])
               + f" (the phase's own at 2^20: {phase_rate:.0f})", flush=True)
+
+
+def noise_draw_phase(circuit, planned: dict) -> dict:
+    """Phase 26: the noise-draw kernel against the plain draw on 2^20 rows of
+    seeded uniforms, bit for bit, on the noise of every listed program;
+    timed beside the bound. Returns d3's (ms, plain ms, bound ms, bound by,
+    label) and the largest difference (0 where every bit is equal)."""
+    from tsim_tpu_torch.kernels import build
+    from tsim_tpu_torch.models.exported import SURFACE_D7_PROGRAM, cultivation_d3, distillation_d5
+    from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
+    from tsim_tpu_torch.program_io import load_npz
+
+    noises = {
+        "d3": circuit.load().noise,
+        "d3 state probs": circuit.load_state_probs().noise,
+        "1-check": cultivation_d3(p=0.001, checks=1).load().noise,
+        "2-check": cultivation_d3(p=0.001, checks=2).load().noise,
+        "d5": distillation_d5(p=0.02).load().noise,
+        "grown": planned["grown f32 (phase 24)"][0]._noise,
+        "d7 surface": load_npz(SURFACE_D7_PROGRAM).noise,
+    }
+    timing = None
+    for i, (label, noise) in enumerate(noises.items()):
+        sampler = DeviceChannelSampler(noise, DEVICE)
+        C, F = sampler.num_channels, sampler.num_f
+        g = torch.Generator(device=DEVICE).manual_seed(260 + i)
+        u = torch.rand((MAIN_BATCH, C), generator=g, device=DEVICE)
+
+        def plain():
+            return torch.cat([sampler.sample_from_uniforms(c) for c in torch.split(u, NOISE_SLICE)])
+
+        got = sampler.from_uniforms(u)
+        want = plain()
+        torch.cuda.synchronize()
+        differ = int((got != want).any(dim=1).sum())
+        k1 = device_ms(lambda: sampler.from_uniforms(u))
+        p = time_ms(plain, reps=2)
+        k2 = device_ms(lambda: sampler.from_uniforms(u))
+        bound = (4 * C + F) * MAIN_BATCH / HBM_BYTES_PER_S * 1e3
+        print(f"noise draw {label}: C={C} F={F} W={sampler.words} N={sampler.cdf_entries}, table "
+              f"{sampler.table.nbytes} bytes, B={MAIN_BATCH}: "
+              f"{differ} rows differ; bound {bound:.4f} ms (bytes), kernel {k1:.4f} / {k2:.4f} ms "
+              f"(device time), plain {p:.3f} ms", flush=True)
+        if got.shape != (MAIN_BATCH, F) or got.dtype != torch.uint8 or differ:
+            fail(f"noise draw {label}: the kernel differs from the plain draw")
+        if label == "d3":
+            timing = ((k1 + k2) / 2, p, bound, "bytes", f"d3 noise, B={MAIN_BATCH}")
+        del sampler, u, got, want
+        torch.cuda.empty_cache()
+    return timing
+
+
+GRAPH_BATCHES = 4  # phase 27: batches of 2^20 a call
+
+
+def enqueue_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds to enqueue ``fn()``, the card idle before each."""
+    took = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        took.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * sum(took) / reps
+
+
+def graph_phase(circuit, planned: dict) -> None:
+    """Phase 27: the graphed batch step against the eager steps, on the
+    samplers of phases 4, 12, 7 and 24 and on sharded d3."""
+    import collections
+
+    import tsim_tpu_torch.sampler as port
+    from tsim_tpu_torch.kernels import noise_draw
+    from tsim_tpu_torch.parallel.shard import ShotMesh, make_shot_mesh, shard_sizes
+
+    if torch.cuda.device_count() >= 2:
+        mesh, kind = make_shot_mesh(), f"every card ({torch.cuda.device_count()})"
+    else:
+        mesh, kind = ShotMesh(["cuda:0"] * 2), "two replicas of card 0"
+    paths = [(label, planned[key][0]) for label, key in (
+        ("d3 f32", "d3 f32 (phase 4)"), ("1-check f32", "1-check f32 (phase 12)"),
+        ("2-check exact", "2-check exact (phase 7)"), ("grown f32", "grown f32 (phase 24)"))]
+    paths.append((f"sharded d3 ({kind})", circuit.compile_detector_sampler(seed=0, mesh=mesh)))
+    shots = GRAPH_BATCHES * MAIN_BATCH
+    for label, sampler in paths:
+        sampler._drop_graphs()  # a call that warms the step up and captures it
+        synchronize(sampler._mesh)
+        t0 = time.perf_counter()
+        sampler.sample(2 * MAIN_BATCH, batch_size=MAIN_BATCH)
+        synchronize(sampler._mesh)
+        first_wall = time.perf_counter() - t0
+        shards = sampler._shards_for(MAIN_BATCH)
+        capture_ms = [1e3 * s.graph.capture_seconds for s in shards]
+        sizes = shard_sizes(MAIN_BATCH, len(shards))
+        synchronize(sampler._mesh)
+        states = [s.generator.get_state() for s in shards]
+        noise_draw.reset_launch_counts()
+        got = sampler._sample_batches(shots, MAIN_BATCH)
+        synchronize(sampler._mesh)
+        steps, graphed_dev = sampler.last_batch_steps, sampler.last_norm_deviation
+        launched = noise_draw.launch_counts["noise_draw"]
+        for s, state in zip(shards, states):
+            s.generator.set_state(state)
+        outs, devs = [], []
+        for _ in range(GRAPH_BATCHES):
+            for s, n in zip(shards, sizes):
+                out, dev = sampler._sample_batch(n, shard=s)
+                outs.append(out.cpu().numpy())
+                devs.append(float(dev[0]))
+        want = np.concatenate(outs).astype(np.bool_)
+        differ = int((got != want).any(axis=1).sum())
+        # The same call graphed and eagerly (graphs switched off), in turns.
+        rates, graphs_on = {True: [], False: []}, port._graphs_on
+        for graphed in (True, False, False, True):
+            port._graphs_on = graphs_on if graphed else (lambda device: False)
+            try:
+                synchronize(sampler._mesh)
+                t0 = time.perf_counter()
+                sampler._sample_batches(shots, MAIN_BATCH)
+                synchronize(sampler._mesh)
+                rates[graphed].append(shots / (time.perf_counter() - t0))
+            finally:
+                port._graphs_on = graphs_on
+            if not graphed:
+                eager_steps = sampler.last_batch_steps
+        replay_ms = enqueue_ms(lambda: [sampler._batch_step(s, n, None, collections.Counter(), True, shards)
+                                        for s, n in zip(shards, sizes)])
+        eager_ms = enqueue_ms(lambda: [sampler._sample_batch(n, shard=s) for s, n in zip(shards, sizes)])
+        print(f"graphed {label}: {shots} shots, {len(shards)} shard(s); {differ} rows differ from the eager "
+              f"steps, norm deviation {graphed_dev:.6e} (eager steps' {max(devs):.6e}); steps a call "
+              f"graphed {steps}, eager {eager_steps}; noise_draw launched {launched}; shots/s in turns "
+              f"graphed {' / '.join(f'{r:.0f}' for r in rates[True])}, eager "
+              f"{' / '.join(f'{r:.0f}' for r in rates[False])}; host enqueue a batch (every "
+              f"shard) replayed {replay_ms:.4f} ms, eager {eager_ms:.4f} ms; capture "
+              + " / ".join(f"{ms:.2f}" for ms in capture_ms) + f" ms a shard, the call of an eager batch "
+              f"and a captured one {1e3 * first_wall:.1f} ms", flush=True)
+        if got.shape != want.shape or differ or graphed_dev != max(devs):
+            fail(f"graphed {label}: the graphed call differs from the eager steps")
+        if steps != {"eager": 0, "capture": 0, "replay": GRAPH_BATCHES * len(shards)}:
+            fail(f"graphed {label}: expected every batch replayed, got {steps}")
+        if launched != GRAPH_BATCHES * len(shards):
+            fail(f"graphed {label}: the noise kernel launched {launched} times, expected one a shard and batch")
 
 
 def main() -> None:
@@ -1717,6 +1895,7 @@ def main() -> None:
     from tsim_tpu_torch.compile.sample_eval import sample_product_sum_reference
     from tsim_tpu_torch.compile.sample_tables import SampleTables
     from tsim_tpu_torch.kernels import build
+    from tsim_tpu_torch.kernels import noise_draw as noise_kernel
     from tsim_tpu_torch.kernels import sample_eval as kernel
     from tsim_tpu_torch.models.exported import distillation_d3, distillation_d5
 
@@ -1781,11 +1960,16 @@ def main() -> None:
     sampler.sample(MAIN_BATCH, batch_size=MAIN_BATCH, append_observables=True)  # warm-up
     torch.cuda.synchronize()
     kernel.reset_launch_counts()
+    noise_kernel.reset_launch_counts()
     t0 = time.perf_counter()
     out = sampler.sample(MAIN_SHOTS, batch_size=MAIN_BATCH, append_observables=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernel.launch_counts)
+    main_noise_launches = noise_kernel.launch_counts["noise_draw"]
+    print(f"slice: noise_draw launches {main_noise_launches}; batch steps {sampler.last_batch_steps}", flush=True)
+    if main_noise_launches <= 0:
+        fail("slice: the noise-draw kernel of the path was not launched")
     n_out = exported.program.num_outputs
     print(f"slice: shape {out.shape}, dtype {out.dtype}", flush=True)
     if out.shape != (MAIN_SHOTS, n_out) or out.dtype != np.bool_:
@@ -1909,6 +2093,12 @@ def main() -> None:
     # ---- phase 25: batch planning ------------------------------------------
     planning_phase(planned)
 
+    # ---- phase 26: the noise-draw kernel -----------------------------------
+    noise_timing = noise_draw_phase(circuit, planned)
+
+    # ---- phase 27: the graphed batch step ------------------------------------
+    graph_phase(circuit, planned)
+
     def entry(name, source, replaces, n_launches, err, timed):
         ms, plain_ms, bound_ms, bound_by, rung = timed
         if ms < bound_ms:
@@ -1947,6 +2137,7 @@ def main() -> None:
             e["bound_ms_as_exact"] = as_exact[e["name"]]
     entries.append(entry("sample_eval_ablate", SOURCE, ABLATE_REPLACES, ablate_launches["ablate"],
                          ablate_err, ablate_timing))
+    entries.append(entry("noise_draw", NOISE_SOURCE, NOISE_REPLACES, main_noise_launches, 0.0, noise_timing))
     print(f"packed vs per-term on the timed rungs: " + ", ".join(
         f"{c} {per_term_timing[c][0]:.4f} ms ({per_term_timing[c][4]})" for c in per_term_timing), flush=True)
     print(json.dumps({"kernels": entries}))

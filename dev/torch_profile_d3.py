@@ -9,12 +9,15 @@ whose ladder is eight launches of the small f32 kernel and one of the wide).
                                     [--postselected] [--mesh K]
 
 1. Stage split of one batch serialised, on the host clock, with
-   ``torch.cuda.synchronize()`` after each stage: noise draw and ladder
-   (the sampler's ``_sample_batch``), the device-to-host copy into pinned
-   memory and the host's move into the result array (``_RowsToHost.push``
-   and ``close``). Medians over the batches. ``sample()`` pipelines these
-   stages across batches; their sum is the time of a batch without that.
-2. The same batches through ``sample()`` without and with
+   ``torch.cuda.synchronize()`` after each stage: noise draw (``torch.rand``
+   and the noise-draw kernel) and ladder (the sampler's eager
+   ``_sample_batch``), the device-to-host copy into pinned memory and the
+   host's move into the result array (``_RowsToHost.push`` and ``close``).
+   Medians over the batches. ``sample()`` pipelines these stages across
+   batches and replays the captured step; their sum is the time of an eager
+   batch without either.
+2. The same batches through ``sample()``, every batch a replay of the
+   captured step (two warm-up batches capture it first), without and with
    ``torch.profiler``: wall time of each, the device's busy share (the union
    of the kernels' and copies' device intervals over the profiled wall
    time, beside their plain sum, which counts twice what the copy stream
@@ -174,7 +177,8 @@ def main() -> None:
             use_detector_reference_sample=True, use_observable_reference_sample=True,
         )
     print(f"{'postselected ' if args.postselected else ''}{circuit.path.stem}, evaluation {args.evaluation}")
-    sampler.sample(B, batch_size=B, **kw)  # warm-up: kernel build and first launches
+    # Warm-up: kernel build and first launches, then the step's capture.
+    sampler.sample(2 * B, batch_size=B, **kw)
     torch.cuda.synchronize()
 
     if args.mesh:
@@ -210,7 +214,7 @@ def main() -> None:
     summed_us = sum(r[1] for r in rows)
     busy_us = busy_union_us([e for e in prof.events() if e.device_type == cuda])
     print(f"sample({n} x {B}): {plain_wall * 1e3:.1f} ms unprofiled, {prof_wall * 1e3:.1f} ms profiled "
-          f"({n * B / plain_wall:.0f} shots/s unprofiled)")
+          f"({n * B / plain_wall:.0f} shots/s unprofiled); batch steps {sampler.last_batch_steps}")
     print(f"device busy {busy_us / 1e3:.1f} ms of {prof_wall * 1e3:.1f} ms profiled wall "
           f"= {100 * busy_us / 1e6 / prof_wall:.1f}% (idle {100 - 100 * busy_us / 1e6 / prof_wall:.1f}%); "
           f"device times summed {summed_us / 1e3:.1f} ms")

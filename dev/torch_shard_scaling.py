@@ -7,7 +7,8 @@ number of cards of a shot mesh, on the cards of this machine.
     python3 dev/torch_shard_scaling.py --sweep [--calls 3]
 
 For each mesh, ``distillation_d3(p=0.05).compile_detector_sampler(seed=0,
-mesh=mesh)`` samples after one warm-up call, ``--calls`` times, with
+mesh=mesh)`` samples after a warm-up call of two batches (the second
+captures each shard's batch step, which the timed calls replay), ``--calls`` times, with
 observables appended, in two ways:
 
 * ``fixed``: ``--batches`` batches of 2^20 shots, the batch split over the
@@ -98,7 +99,8 @@ def run(label: str, mesh, way: str, calls: int, batches: int, base: int | None =
     size, taken = sampler._plan_batches(shots, batch)
     shards = len(taken)
     devices = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
-    sampler.sample(size, batch_size=size, append_observables=True)  # warm-up
+    # Warm-up: the kernels, then each shard's batch step captured for the size.
+    sampler.sample(2 * size, batch_size=size, append_observables=True)
     walls = []
     for _ in range(calls):
         for d in devices:

@@ -82,7 +82,7 @@ def test_cpu_dispatch_takes_plain_version(d3_rungs):
 def test_build_is_keyed_by_sources():
     lib = build.library_path()
     assert lib.parent.parent == build.BUILD_ROOT
-    assert [p.name for p in build.sources()] == ["exact_eval.cu", "sample_eval.cu"]
+    assert [p.name for p in build.sources()] == ["exact_eval.cu", "noise_draw.cu", "sample_eval.cu"]
     assert lib.parent.name == build._digest()
 
 
@@ -515,3 +515,37 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "FAIL" in proc.stdout
+
+
+def _noise_models():
+    from tsim_tpu_torch.models.exported import SURFACE_D7_PROGRAM, distillation_d5
+    from tsim_tpu_torch.program_io import load_npz
+
+    return {
+        "d3": lambda: distillation_d3(p=0.05).load().noise,
+        "checks2": lambda: cultivation_d3(p=0.001, checks=2).load().noise,
+        "d5": lambda: distillation_d5(p=0.02).load().noise,
+        "d7": lambda: load_npz(SURFACE_D7_PROGRAM).noise,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["d3", "checks2", "d5", "d7"])
+@pytest.mark.parametrize("rows", [1, 127, 4097, 1 << 17])
+def test_noise_draw_kernel_equals_plain_version(cuda, program, rows):
+    """The noise-draw kernel against the plain draw on the same seeded
+    uniforms, bit for bit: packed (d3), bitplanes (2-check, d5) and the
+    d7 surface code's W = 11 words through L1/L2."""
+    from tsim_tpu_torch.kernels import noise_draw
+    from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
+
+    sampler = DeviceChannelSampler(_noise_models()[program](), cuda)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    u = torch.rand((rows, sampler.num_channels), generator=g, device=cuda)
+    before = noise_draw.launch_counts["noise_draw"]
+    got = sampler.from_uniforms(u)
+    want = sampler.sample_from_uniforms(u)
+    torch.cuda.synchronize()
+    assert noise_draw.launch_counts["noise_draw"] == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (rows, sampler.num_f)
+    assert torch.equal(got, want)

@@ -24,7 +24,7 @@ from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, synthetic_ru
 from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import exact_eval as exact_kernel
 from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3, distillation_d5
-from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler
+from tsim_tpu_torch.noise.device_channels import DeviceChannelSampler, read_draw_table
 from tsim_tpu_torch.ops.gf2 import static_take_columns
 
 BORDER = 1e-4
@@ -275,6 +275,17 @@ def _card_glue(tables, x):
     return sample_eval._magnitude(torch.zeros((rows, 2)), tables.bias)
 
 
+def _card_noise(channels, u):
+    """``DeviceChannelSampler.from_uniforms`` as a card runs it, on the CPU:
+    the kernel's (B, num_f) uint8 output, filled in place by the plain
+    reader of its table (numpy, which the allocation events do not see; a
+    torch ``copy_`` would add a temporary of its own that the kernel does
+    not make)."""
+    out = torch.empty((u.shape[0], channels.num_f), dtype=torch.uint8)
+    out.numpy()[:] = read_draw_table(channels.table, channels.num_channels, channels.num_f, u.numpy())
+    return out
+
+
 MODEL_ROWS = 2048
 CALL_BYTES = 256  # a call's scalar temporaries, the same at any number of rows
 
@@ -290,6 +301,7 @@ def test_modelled_bytes_bound_a_seeded_batch(program, evaluation, device, monkey
     s = COMMITTED[program]().compile_detector_sampler(seed=3, device="cpu", evaluation=evaluation)
     if device == "card":
         monkeypatch.setattr(port_sampler, "evaluate_abs_sample", _card_glue)
+        monkeypatch.setattr(DeviceChannelSampler, "from_uniforms", _card_noise)
     model = s._peak_bytes_per_sample(torch.device("cpu") if device == "cpu" else CARD)
     post = s._peak_bytes_per_sample(torch.device("cpu") if device == "cpu" else CARD, postselected=True)
     mask = np.ones(s._num_detectors, bool)
@@ -336,7 +348,8 @@ def test_noise_draw_count_bounds_what_it_allocates(program):
     channels = s._device_channels
     assert channels.packed == (program in ("d3", "checks1"))
     got = _peak_bytes(lambda: channels.sample(s._generator, MODEL_ROWS))
-    assert 0.9 * channels.peak_bytes_per_shot * MODEL_ROWS < got <= channels.peak_bytes_per_shot * MODEL_ROWS
+    count = channels.peak_bytes_per_shot(torch.device("cpu"))
+    assert 0.9 * count * MODEL_ROWS < got <= count * MODEL_ROWS
 
 
 @pytest.fixture(scope="module")
@@ -386,3 +399,32 @@ def test_exact_mode_sampler_runs(d3):
     )
     with pytest.raises(ValueError, match="evaluation"):
         d3.compile_detector_sampler(seed=0, device="cpu", evaluation="f64")
+
+
+@pytest.mark.parametrize("warm,graph,rows,action", [
+    (0, None, 64, "eager"),       # a size's first batch warms it up
+    (64, None, 64, "capture"),    # its second is captured
+    (64, 64, 64, "replay"),       # later ones replay
+    (32, 64, 64, "replay"),       # another size warmed up since keeps the graph until captured
+    (64, 32, 64, "capture"),      # the new size replaces the graph of the old one
+    (64, 64, 32, "eager"),        # another size warms up without touching the graph
+    (32, 64, 32, "capture"),
+])
+def test_step_action_keys_on_rows_and_keeps_one_size(warm, graph, rows, action):
+    assert port_sampler._step_action(warm, graph, rows) == action
+
+
+@pytest.mark.parametrize("program", ["d3", "checks1"])
+def test_card_model_counts_the_kernel_draw(program):
+    """On a card a plain batch holds the noise kernel's uniforms and output
+    (4C + num_f) or the ladder, whichever is more, beside the previous
+    batch's waiting outputs and their fold (a replay's bits pushed as a
+    fresh copy, as an eager batch's)."""
+    s = COMMITTED[program]().compile_detector_sampler(seed=0, device="cpu")
+    n_out, ch = s._program.num_outputs, s._device_channels
+    ladder = port_sampler._ladder_bytes_per_row(s._tables, ch.num_f, CARD)
+    want = 2 * n_out + max(4 * ch.num_channels + ch.num_f, ladder)
+    assert s._peak_bytes_per_sample(CARD) == want
+    cpu = torch.device("cpu")
+    assert s._peak_bytes_per_sample(cpu) == 2 * n_out + max(
+        ch.peak_bytes_per_shot(cpu), port_sampler._ladder_bytes_per_row(s._tables, ch.num_f, cpu))

@@ -121,6 +121,8 @@ def load() -> ctypes.CDLL:
         lib.tsim_approx_eval.restype = i32
         lib.tsim_approx_eval_ablate.argtypes = lib.tsim_approx_eval.argtypes
         lib.tsim_approx_eval_ablate.restype = i32
+        lib.tsim_noise_draw.argtypes = [vp, i64, i32, vp, i32, i32, i32, vp, vp]
+        lib.tsim_noise_draw.restype = i32
         lib.tsim_cuda_error_string.argtypes = [i32]
         lib.tsim_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -9,7 +9,10 @@ outputs and runs every component's plugged-circuit ladder (one evaluation
 per rung, f32 or exact, chain-rule Bernoulli draws). The batches form a
 pipeline: batch k's (shots, outputs) bits are copied to pinned host memory
 on a stream of their own while the device works on batch k + 1
-(:class:`_RowsToHost`). With a postselection mask, shots whose direct
+(:class:`_RowsToHost`). On a card each shard's batch step (the noise draw
+and the ladders) is captured once as a CUDA graph and replayed for every
+later batch of its size (:class:`_StepGraph`, ``tsim_tpu``'s one jit per
+batch step). With a postselection mask, shots whose direct
 detectors fire are discarded on the device before any evaluation.
 A fully-direct program (no components, as every Clifford circuit compiles
 to) needs no evaluation: it is drawn on the host, as in ``tsim_tpu``, by the
@@ -40,14 +43,17 @@ from .compile.sample_eval import (
     F32_OPS_PER_S,
     bytes_per_row,
     check_evaluation,
+    ensure_self_test,
     evaluate_abs_sample,
     least_seconds_per_row,
     norm_deviation_tolerance,
     rung_tables,
 )
+from .compile.sample_tables import SampleTables
 from .compile import aot_cache
 from .compile.pipeline import compile_program
 from .core.graph_prep import prepare_graph
+from .kernels import launches
 from .noise.channels import Channel, ChannelSampler
 from .noise.device_channels import DeviceChannelSampler
 from .ops.gf2 import static_take_columns
@@ -553,13 +559,124 @@ def on_device(device: torch.device):
 @dataclass
 class _Shard:
     """One mesh entry of a sampler: its device, generator, tables and noise
-    sampler (the last two shared by the entries of one device). An
-    unsharded sampler has one, with its own generator."""
+    sampler (the last two shared by the entries of one device), and its
+    captured batch step: ``graph`` (a :class:`_StepGraph` or None) and
+    ``warm_rows``, the rows of the last batch that ran eagerly to warm a
+    size up (:func:`_step_action`). An unsharded sampler has one, with its
+    own generator."""
 
     device: torch.device
     generator: torch.Generator
     tables: ProgramTables
     channels: DeviceChannelSampler
+    graph: "_StepGraph | None" = None
+    warm_rows: int = 0
+
+
+def _graphs_on(device: torch.device) -> bool:
+    """Whether a shard on ``device`` captures its batch step: on a card."""
+    return device.type == "cuda"
+
+
+def _step_action(warm_rows: int, graph_rows: int | None, rows: int) -> str:
+    """What a shard does with a full batch of ``rows`` rows, given the rows
+    it last warmed up and those of its graph (None without one): "replay"
+    the graph of that size; "capture" one (and replay it) where the size
+    was warmed up by an eager batch before, dropping the graph of another
+    size (a shard keeps one); else "eager", which warms the size up. So a
+    size's first batch runs eagerly, its second is captured, and a step that
+    is never repeated is never captured."""
+    if graph_rows == rows:
+        return "replay"
+    if warm_rows == rows:
+        return "capture"
+    return "eager"
+
+
+class _StepGraph:
+    """One shard's batch step of ``rows`` rows, its noise draw and
+    :func:`sample_program_with_deviation`, captured once as a CUDA graph
+    and replayed for every later batch of that size: the counterpart of the
+    executable ``tsim_tpu`` compiles once per program, noise sampler, batch
+    size and mesh (``tsim_tpu/sampler.py::_device_run_fn``, whose one jit
+    lets XLA fuse the step). A replay enqueues the whole step as one launch.
+
+    Capture records on a stream of the shard's device (a graph cannot be
+    captured on the default stream) and runs nothing; a replay runs on the
+    device's current stream. Where the trouble lies:
+
+    * RNG: the step draws from the shard's generator, which is registered
+      with the graph (``CUDAGraph.register_generator_state``), so that a
+      replay reads the generator's offset when it is replayed and advances
+      it by the step's draws, exactly as the eager step does: the bits of a
+      replay equal the eager step's on the same generator state, and a
+      checkpoint saved after replays resumes the stream.
+    * Work before capture: the K4 self-test compares on the host, so it runs
+      first (:func:`ensure_self_test`; the eager warm-up batch has already
+      run it once, and built and loaded the kernels' library, unless the
+      self-test was forgotten since). The kernels' launch paths may set a
+      kernel's shared-memory attribute, which a capture allows.
+    * Launch counts: capture makes no launch, so what the wrappers counted
+      while capturing is taken off again, and each replay counts it
+      (``kernels/launches.py``).
+    * Static outputs: every replay rewrites ``out`` and ``dev``. The caller
+      takes ``dev`` into a running maximum at once and pushes a fresh
+      tensor of ``out``'s bits (its fold, else a copy) to the host, which
+      :class:`_RowsToHost` holds until its copy is done; so batch k's copy
+      to the host overlaps batch k + 1's replay and nothing rewrites it.
+    * A capture that fails raises RuntimeError naming the shard's device
+      and the rows; nothing falls back to the eager step.
+
+    ``capture_seconds`` is the host's time to capture (the graph's first
+    replay, which uploads it, follows). It is paid once a shard and size:
+    the step's enqueue, the new segments of the graph's private memory pool
+    (``cudaMalloc``, whose host time varies most) and the instantiation in
+    ``capture_end``.
+    """
+
+    def __init__(self, sampler: "_CompiledSamplerBase", shard: _Shard, rows: int):
+        self.rows = rows
+        device = shard.device
+        if any(isinstance(rung, SampleTables) for comp in shard.tables.components for rung in comp.rungs):
+            ensure_self_test(device)
+        self.graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        try:
+            if not hasattr(self.graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"torch {torch.__version__} has no CUDAGraph.register_generator_state: a graph "
+                    "cannot draw from the shard's generator"
+                )
+            self.graph.register_generator_state(shard.generator)
+            # capture_begin/end rather than torch.cuda.graph, whose entry
+            # synchronises the card and empties the allocator's cache, which
+            # a capture does not need.
+            t0 = time.perf_counter()
+            with torch.cuda.stream(torch.cuda.Stream(device)):
+                self.graph.capture_begin()
+                try:
+                    self.out, self.dev = sampler._sample_batch(rows, shard=shard)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+            self.capture_seconds = time.perf_counter() - t0
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the batch step (noise draw and ladders) of {rows} rows on {device} "
+                f"failed: {exc}"
+            ) from exc
+        finally:
+            self._launches = launches.since(before)
+            launches.restore(before)
+
+    def replay(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Run the captured step on the current stream: (the static (rows,
+        num_outputs) uint8 bits, the static (1,) norm deviation)."""
+        self.graph.replay()
+        launches.add(self._launches)
+        return self.out, self.dev
 
 
 def _worst(deviations) -> float:
@@ -768,6 +885,9 @@ class _CompiledSamplerBase:
         # Largest normalization deviation of the last sample() call (the
         # monitor warns above norm_deviation_tolerance()).
         self.last_norm_deviation: float | None = None
+        # The batch steps of the last plain batch loop, by kind
+        # (_sample_batches).
+        self.last_batch_steps: dict[str, int] | None = None
 
     def _shards_for(self, rows: int, card_rows: int | None = None) -> list[_Shard]:
         """The shards a batch of ``rows`` rows is split over: every shard of
@@ -963,10 +1083,16 @@ class _CompiledSamplerBase:
     def _peak_bytes_per_sample(self, device: torch.device, postselected: bool = False) -> int:
         """Bytes a row of one shard's batch at its peak on ``device`` (the
         plain versions on a CPU, the kernels on a card), counted from the
-        shapes the batch loop allocates: the previous batch's outputs and
-        their folded copy, which wait for their copy to the host, beside the
-        larger of the noise draw (``DeviceChannelSampler.peak_bytes_per_shot``)
-        and the ladders (:func:`_ladder_bytes_per_row`).
+        shapes the batch loop allocates: two batches' outputs (one waiting
+        for its copy to the host, the other's or its folded copy) beside
+        the larger of the noise draw
+        (``DeviceChannelSampler.peak_bytes_per_shot`` on ``device``) and
+        the ladders (:func:`_ladder_bytes_per_row`). On a
+        card, a shard's captured step (:class:`_StepGraph`) holds the larger
+        of the noise draw and the ladders, allocated once, and a replay's
+        bits are pushed as a fresh copy (or their fold), as an eager batch's
+        are; the eager warm-up batch's outputs still wait for their copy
+        while the step is captured.
 
         A postselected chunk (:class:`_PostselectedShard`) holds its noise
         rows, keep mask and rows; the pool's survivors and their row indices
@@ -975,7 +1101,7 @@ class _CompiledSamplerBase:
         and of one that waits for its copy; and beside them the larger of
         the next chunk's noise draw with its direct outputs, and the ladder
         with its folded outputs."""
-        noise = self._device_channels.peak_bytes_per_shot
+        noise = self._device_channels.peak_bytes_per_shot(device)
         num_f, n_out = self._device_channels.num_f, self._program.num_outputs
         ladder = _ladder_bytes_per_row(self._tables, num_f, device)
         if not postselected:
@@ -1054,7 +1180,17 @@ class _CompiledSamplerBase:
         (``batch_size`` unused) and folded there. ``stage(name)``, if given,
         is called as each stage of a batch ends: "noise" and "ladder" for
         each shard (:meth:`_sample_batch`), "push" once every shard's rows
-        are pushed, and "close" once the last rows are in the result."""
+        are pushed, and "close" once the last rows are in the result.
+
+        On a card a shard's full batches (its share of the first batch's
+        rows) go through its captured step (:meth:`_batch_step`): the first
+        batch of a size runs eagerly, the next is captured, and the later
+        ones replay it, in this call and in later ones. A shorter last batch,
+        every batch with ``stage`` given, and every batch on the CPU run
+        eagerly. ``last_batch_steps`` counts the call's "eager" batches and
+        its "capture"s and "replay"s (a captured batch is replayed too).
+        Each batch's norm deviation goes into a running maximum on its
+        device, read once a device at the end."""
         self._validate_shot_args(shots, batch_size)
         num_outputs = self._program.num_outputs
         if shots == 0:
@@ -1067,23 +1203,36 @@ class _CompiledSamplerBase:
         batch_size, shards = self._plan_batches(shots, batch_size)
 
         result = np.empty((shots, num_outputs), dtype=np.bool_)
-        rows = ceil(min(batch_size, shots) / len(shards))
-        to_host = [_RowsToHost(result, s.device, rows) for s in shards]
+        full = shard_sizes(min(batch_size, shots), len(shards))
+        to_host = [_RowsToHost(result, s.device, n) for s, n in zip(shards, full)]
         folds = {s.device: None if fold is None else torch.as_tensor(np.asarray(fold, np.uint8), device=s.device)
                  for s in shards}
-        deviations = []
+        worst = {s.device: torch.zeros((1,), dtype=torch.float32, device=s.device) for s in shards}
+        steps = collections.Counter(eager=0, capture=0, replay=0)
         for start in range(0, shots, batch_size):
             sizes = shard_sizes(min(batch_size, shots - start), len(shards))
             # Every shard's noise and ladder are enqueued before any copy.
-            batches = [self._sample_batch(n, stage, shard=s) if n else None for s, n in zip(shards, sizes)]
+            batches = [
+                self._batch_step(s, n, stage, steps, graphed=stage is None and n == f, busy=shards) if n else None
+                for s, n, f in zip(shards, sizes, full)
+            ]
             at = start
-            for shard, sink, n, batch in zip(shards, to_host, sizes, batches):
+            for i, (shard, sink, n) in enumerate(zip(shards, to_host, sizes)):
                 if n:
-                    out, dev = batch
-                    deviations.append((shard.device, dev))
+                    # Taken out of the list, so that a folded batch's own bits
+                    # are freed before the next batch's step.
+                    out, dev, replayed = batches[i]
+                    batches[i] = None
                     fold_d = folds[shard.device]
                     with on_device(shard.device):
-                        sink.push(out if fold_d is None else out ^ fold_d, at)
+                        torch.maximum(worst[shard.device], dev, out=worst[shard.device])
+                        # A replay's bits are the graph's static output, which
+                        # the next replay rewrites: push a fresh tensor.
+                        if fold_d is not None:
+                            out = out ^ fold_d
+                        elif replayed:
+                            out = out.clone()
+                        sink.push(out, at)
                 at += n
             if stage:
                 stage("push")
@@ -1091,16 +1240,59 @@ class _CompiledSamplerBase:
             sink.close()
         if stage:
             stage("close")
-        self.last_norm_deviation = _worst(deviations)
+        self.last_batch_steps = dict(steps)
+        self.last_norm_deviation = _worst(worst.items())
         _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
 
+    def _batch_step(self, shard: _Shard, rows: int, stage, steps: collections.Counter,
+                    graphed: bool, busy: list[_Shard]) -> tuple[torch.Tensor, torch.Tensor, bool]:
+        """Enqueue one shard's batch of ``rows`` rows: (bits, (1,) deviation,
+        whether they are a replay's static outputs). A ``graphed`` batch on a
+        card goes through the shard's captured step as :func:`_step_action`
+        decides; any other batch is :meth:`_sample_batch`. Counts the step
+        in ``steps``. A capture first drops the graphs of the shards on the
+        same device that the call (``busy``, its shards) does not use: under
+        mesh="auto" the unsharded shard and the mesh's first share card 0,
+        and a device keeps only the graphs of one call's shards, which the
+        memory model counts."""
+        if not (graphed and _graphs_on(shard.device)):
+            steps["eager"] += 1
+            return (*self._sample_batch(rows, stage, shard=shard), False)
+        action = _step_action(shard.warm_rows, None if shard.graph is None else shard.graph.rows, rows)
+        if action == "eager":
+            shard.warm_rows = rows
+            steps["eager"] += 1
+            return (*self._sample_batch(rows, shard=shard), False)
+        with on_device(shard.device):
+            if action == "capture":
+                # The graph of another size goes before the new one is made.
+                for other in self._every_shard():
+                    if other.device == shard.device and (other is shard or all(other is not b for b in busy)):
+                        other.graph = None
+                shard.graph = _StepGraph(self, shard, rows)
+                steps["capture"] += 1
+            steps["replay"] += 1
+            out, dev = shard.graph.replay()
+        return out, dev, True
+
+    def _drop_graphs(self) -> None:
+        """Forget every shard's captured step and warmed-up size, so the
+        next batch of any size runs eagerly and frees the graphs' memory."""
+        for shard in self._every_shard():
+            shard.graph, shard.warm_rows = None, 0
+
+    def _every_shard(self) -> list[_Shard]:
+        """The unsharded shard and the mesh's shards, each once."""
+        return list({id(s): s for s in (self._solo, *self._shards)}.values())
+
     def _sample_batch(self, shots: int, stage=None, shard: _Shard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Enqueue one batch's noise draw and ladder on ``shard`` (the first
-        one by default): ((shots, num_outputs) uint8 bits, (1,) max norm
-        deviation), both on its device. ``stage(name)``, if given, is called
-        as each ends, with "noise" or "ladder" (a profiler's hook; "d2h" and
-        "host" are :class:`_RowsToHost`'s push and close)."""
+        one by default), eagerly: ((shots, num_outputs) uint8 bits, (1,) max
+        norm deviation), both on its device. The step a shard's graph
+        captures. ``stage(name)``, if given, is called as each ends, with
+        "noise" or "ladder" (a profiler's hook; "d2h" and "host" are
+        :class:`_RowsToHost`'s push and close)."""
         shard = shard or self._shards_for(shots)[0]
         mark = stage or (lambda name: None)
         with on_device(shard.device):
