@@ -1805,6 +1805,7 @@ def graph_phase(circuit, planned: dict) -> None:
     import tsim_tpu_torch.sampler as port
     from tsim_tpu_torch.kernels import noise_draw
     from tsim_tpu_torch.parallel.shard import ShotMesh, make_shot_mesh, shard_sizes
+    from tsim_tpu_torch.utils import profiling
 
     if torch.cuda.device_count() >= 2:
         mesh, kind = make_shot_mesh(), f"every card ({torch.cuda.device_count()})"
@@ -1819,11 +1820,15 @@ def graph_phase(circuit, planned: dict) -> None:
         sampler._drop_graphs()  # a call that warms the step up and captures it
         synchronize(sampler._mesh)
         t0 = time.perf_counter()
-        sampler.sample(2 * MAIN_BATCH, batch_size=MAIN_BATCH)
+        profiling.start()
+        try:
+            sampler.sample(2 * MAIN_BATCH, batch_size=MAIN_BATCH)
+        finally:
+            spans = profiling.stop()
         synchronize(sampler._mesh)
         first_wall = time.perf_counter() - t0
         shards = sampler._shards_for(MAIN_BATCH)
-        capture_ms = [1e3 * s.graph.capture_seconds for s in shards]
+        capture_ms = [(s.end_ns - s.start_ns) / 1e6 for s in spans if s.name == "tsim.capture"]
         sizes = shard_sizes(MAIN_BATCH, len(shards))
         synchronize(sampler._mesh)
         states = [s.generator.get_state() for s in shards]
@@ -1856,7 +1861,7 @@ def graph_phase(circuit, planned: dict) -> None:
                 port._graphs_on = graphs_on
             if not graphed:
                 eager_steps = sampler.last_batch_steps
-        replay_ms = enqueue_ms(lambda: [sampler._batch_step(s, n, None, collections.Counter(), True, shards)
+        replay_ms = enqueue_ms(lambda: [sampler._batch_step(s, n, collections.Counter(), True, shards)
                                         for s, n in zip(shards, sizes)])
         eager_ms = enqueue_ms(lambda: [sampler._sample_batch(n, shard=s) for s, n in zip(shards, sizes)])
         print(f"graphed {label}: {shots} shots, {len(shards)} shard(s); {differ} rows differ from the eager "

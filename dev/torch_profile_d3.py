@@ -27,8 +27,8 @@ whose ladder is eight launches of the small f32 kernel and one of the wide).
 ``--mesh K`` samples on a mesh of cards 0 .. K - 1, the batch split over
 them, and part 1 becomes the host's time by stage of a sharded batch, with
 no synchronisation in between (what one host thread spends enqueueing each
-shard's noise draw and ladder and pushing and moving its rows), summed over
-the shards, beside the same for one card.
+shard's batch step, waiting for and moving its rows: the recorder's spans
+of graphed calls), summed over the shards, beside the same for one card.
 
 ``--postselected`` profiles postselected 2-check cultivation instead
 (``chip_smoke.py`` phase 10: the mask over all detectors, both reference
@@ -104,32 +104,35 @@ def stage_split(sampler, B: int, n: int) -> None:
 
 
 def host_split(sampler, B: int, n: int) -> None:
-    """Part 1 with a mesh: medians over ``n`` batches of the host's time in
-    each stage, summed over the shards, nothing synchronised in between (the
-    host's enqueue cost), through ``_sample_batches``' ``stage`` hook; then
-    the wall time of the batch to its last row on the host."""
+    """Part 1 with a mesh: medians over ``n`` one-batch ``sample()`` calls,
+    graphed as users call it, of the host's time in each of the call's
+    spans (``tsim_tpu_torch.utils.profiling``), summed over the shards,
+    nothing synchronised in between (the host's enqueue cost, the wait for
+    and move of the rows), the call's own time outside them, and its wall
+    time to its last row on the host."""
     import torch
 
-    stages = {k: [] for k in ("noise", "ladder", "push", "close", "wall")}
+    from tsim_tpu_torch.utils import profiling
+
+    names = ("tsim.plan", "tsim.step", "tsim.to_host.wait", "tsim.to_host.move", "tsim.deviation.read")
+    spent = {k: [] for k in (*names, "other", "wall")}
     for _ in range(n):
         torch.cuda.synchronize()
-        spent = dict.fromkeys(stages, 0.0)
-        start = last = time.perf_counter()
-
-        def mark(name):
-            nonlocal last
-            now = time.perf_counter()
-            spent[name] += (now - last) * 1e3
-            last = now
-
-        sampler._sample_batches(B, B, stage=mark)
-        spent["wall"] = (time.perf_counter() - start) * 1e3
-        for k in stages:
-            stages[k].append(spent[k])
+        profiling.start()
+        try:
+            sampler.sample(B, batch_size=B)
+        finally:
+            spans = profiling.stop()
+        (call,) = [s for s in spans if s.name == profiling.CALL]
+        for k in names:
+            spent[k].append(sum(s.end_ns - s.start_ns for s in spans if s.name == k) / 1e6)
+        wall = (call.end_ns - call.start_ns) / 1e6
+        spent["other"].append(wall - sum(s.end_ns - s.start_ns for s in spans if s.parent == call.id) / 1e6)
+        spent["wall"].append(wall)
     shards = len(sampler._plan_batches(B, B)[1])
-    print(f"host time by stage, batch {B} over {shards} shards, median of {n} (ms; no sync in between):")
-    for k, v in stages.items():
-        print(f"  {k:7s} {statistics.median(v):9.3f}")
+    print(f"host time by span, batch {B} over {shards} shards, median of {n} (ms; no sync in between):")
+    for k, v in spent.items():
+        print(f"  {k:19s} {statistics.median(v):9.3f}")
 
 
 def main() -> None:

@@ -34,6 +34,7 @@ from ..program_io import (
     PiProducts,
     ScalarPrefactor,
 )
+from ..utils.profiling import span
 from .exact_eval import bytes_per_row as exact_bytes_per_row, evaluate_abs_exact
 from .exact_tables import ExactTables
 from .sample_tables import _SQRT_HALF, SampleTables, sample_eligible, unpack_words
@@ -364,11 +365,12 @@ def self_test(device) -> dict:
 
 def ensure_self_test(device) -> None:
     """Run the self-test once per device and process ("cuda" and the card it
-    names are one device); re-raise its failure."""
+    names are one device; the ``tsim.self_test`` span); re-raise its failure."""
     key = str(indexed_device(device))
     if key not in _self_tested:
         try:
-            self_test(device)
+            with span("tsim.self_test"):
+                self_test(device)
             _self_tested[key] = None
         except RuntimeError as exc:
             _self_tested[key] = str(exc)

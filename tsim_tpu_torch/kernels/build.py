@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tsim_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -98,10 +100,12 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every signature."""
+    """Build if needed (both in the ``tsim.kernels.load`` span), load once per
+    process, and declare every signature."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        with span("tsim.kernels.load"):
+            lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tsim_sample_eval.argtypes = [
             vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,

@@ -74,6 +74,7 @@ from .program_io import (
     unflatten,
     write_npz,
 )
+from .utils.profiling import note, span
 from .zx import native_simplify
 
 
@@ -95,51 +96,53 @@ def compile_circuit(
     Python engine). A mixed compile is not stored in the AOT cache, whose
     key names the engine, so a cache hit is never mixed.
     """
-    aot_key = aot_cache.cache_key(
-        str(circuit._stim_circ), sample_detectors=sample_detectors, mode=mode, strategy=strategy
-    )
-    cached = aot_cache.fetch(aot_key)
-    t0 = time.perf_counter()
-    if cached is not None:
-        program = cached.program
-        channel_probs = cached.channel_probs
-        error_transform = cached.error_transform
-        num_detectors = cached.num_detectors
-        t1 = t2 = t0
-        mixed = False
-    else:
-        fallbacks = native_simplify.fallbacks
-        prepared = prepare_graph(circuit, sample_detectors=sample_detectors)
-        t1 = time.perf_counter()
-        program = compile_program(prepared, mode=mode, strategy=strategy)
-        t2 = time.perf_counter()
-        channel_probs = prepared.channel_probs
-        error_transform = prepared.error_transform
-        num_detectors = prepared.num_detectors
-        mixed = native_simplify.fallbacks > fallbacks
-        if not mixed:
-            aot_cache.store(
-                aot_key,
-                aot_cache.CompiledEntry(
-                    program=program,
-                    channel_probs=channel_probs,
-                    error_transform=error_transform,
-                    num_detectors=num_detectors,
-                ),
-            )
-    channel_sampler = ChannelSampler(
-        channel_probs=channel_probs, error_transform=error_transform, seed=0
-    )
-    stats = {
-        "prepare_s": round(t1 - t0, 3),
-        "decompose_s": round(t2 - t1, 3),
-        "channels_s": round(time.perf_counter() - t2, 3),
-        "planner": "python" if native_simplify._load() is None else "mixed" if mixed else "native",
-    }
-    exported = ExportedProgram(
-        program=program, noise=noise_from_reference(channel_sampler), num_detectors=num_detectors
-    )
-    return exported, stats
+    with span("tsim.compile"):
+        aot_key = aot_cache.cache_key(
+            str(circuit._stim_circ), sample_detectors=sample_detectors, mode=mode, strategy=strategy
+        )
+        cached = aot_cache.fetch(aot_key)
+        note(cache_hit=cached is not None)
+        t0 = time.perf_counter()
+        if cached is not None:
+            program = cached.program
+            channel_probs = cached.channel_probs
+            error_transform = cached.error_transform
+            num_detectors = cached.num_detectors
+            t1 = t2 = t0
+            mixed = False
+        else:
+            fallbacks = native_simplify.fallbacks
+            prepared = prepare_graph(circuit, sample_detectors=sample_detectors)
+            t1 = time.perf_counter()
+            program = compile_program(prepared, mode=mode, strategy=strategy)
+            t2 = time.perf_counter()
+            channel_probs = prepared.channel_probs
+            error_transform = prepared.error_transform
+            num_detectors = prepared.num_detectors
+            mixed = native_simplify.fallbacks > fallbacks
+            if not mixed:
+                aot_cache.store(
+                    aot_key,
+                    aot_cache.CompiledEntry(
+                        program=program,
+                        channel_probs=channel_probs,
+                        error_transform=error_transform,
+                        num_detectors=num_detectors,
+                    ),
+                )
+        channel_sampler = ChannelSampler(
+            channel_probs=channel_probs, error_transform=error_transform, seed=0
+        )
+        stats = {
+            "prepare_s": round(t1 - t0, 3),
+            "decompose_s": round(t2 - t1, 3),
+            "channels_s": round(time.perf_counter() - t2, 3),
+            "planner": "python" if native_simplify._load() is None else "mixed" if mixed else "native",
+        }
+        exported = ExportedProgram(
+            program=program, noise=noise_from_reference(channel_sampler), num_detectors=num_detectors
+        )
+        return exported, stats
 
 
 def _long(a) -> torch.Tensor:
@@ -389,7 +392,8 @@ class _RowsToHost:
         """Write ``bits`` into ``result[start : start + len(bits)]``."""
         n = bits.shape[0]
         if not self.cuda:
-            self._rows(start, n).copy_(bits.view(torch.bool))
+            with span("tsim.to_host.move", rows=n, bytes=n * self.result.shape[1]):
+                self._rows(start, n).copy_(bits.view(torch.bool))
             return
         if self.pushed < 2:
             self.staging.append(torch.empty(self.shape, dtype=torch.bool, pin_memory=True))
@@ -411,8 +415,10 @@ class _RowsToHost:
 
     def _move(self) -> None:
         done, staging, start, n, _bits = self.pending.popleft()
-        done.synchronize()
-        self._rows(start, n).copy_(staging[:n])
+        with span("tsim.to_host.wait"):
+            done.synchronize()
+        with span("tsim.to_host.move", rows=n, bytes=n * self.result.shape[1]):
+            self._rows(start, n).copy_(staging[:n])
 
     def close(self) -> None:
         while self.pending:
@@ -627,11 +633,11 @@ class _StepGraph:
     * A capture that fails raises RuntimeError naming the shard's device
       and the rows; nothing falls back to the eager step.
 
-    ``capture_seconds`` is the host's time to capture (the graph's first
-    replay, which uploads it, follows). It is paid once a shard and size:
-    the step's enqueue, the new segments of the graph's private memory pool
-    (``cudaMalloc``, whose host time varies most) and the instantiation in
-    ``capture_end``.
+    The caller's ``tsim.capture`` span holds the host's time to make one
+    (the graph's first replay, which uploads it, follows). It is paid once
+    a shard and size: the step's enqueue, the new segments of the graph's
+    private memory pool (``cudaMalloc``, whose host time varies most) and
+    the instantiation in ``capture_end``.
     """
 
     def __init__(self, sampler: "_CompiledSamplerBase", shard: _Shard, rows: int):
@@ -651,7 +657,6 @@ class _StepGraph:
             # capture_begin/end rather than torch.cuda.graph, whose entry
             # synchronises the card and empties the allocator's cache, which
             # a capture does not need.
-            t0 = time.perf_counter()
             with torch.cuda.stream(torch.cuda.Stream(device)):
                 self.graph.capture_begin()
                 try:
@@ -661,7 +666,6 @@ class _StepGraph:
                         self.graph.capture_end()
                     raise
                 self.graph.capture_end()
-            self.capture_seconds = time.perf_counter() - t0
         except Exception as exc:
             raise RuntimeError(
                 f"capturing the batch step (noise draw and ladders) of {rows} rows on {device} "
@@ -684,7 +688,8 @@ def _worst(deviations) -> float:
     merged = {}
     for device, dev in deviations:
         merged[device] = dev if device not in merged else torch.maximum(merged[device], dev)
-    return max(float(d[0]) for d in merged.values())
+    with span("tsim.deviation.read"):
+        return max(float(d[0]) for d in merged.values())
 
 
 class _PostselectedShard:
@@ -732,7 +737,7 @@ class _PostselectedShard:
         survivor count, on the device."""
         want = min(self.chunk, self.shots - self.taken)
         shard, nd = self.shard, self.nd
-        with on_device(shard.device):
+        with span("tsim.postsel.draw", rows=want), on_device(shard.device):
             f_params = shard.channels.sample(shard.generator, want)
             direct = shard.tables.direct_outputs(f_params)[:, :nd]
             keep = ~((direct.bool() & self.post) ^ self.masked_ref).any(dim=1)
@@ -760,27 +765,28 @@ class _PostselectedShard:
                 self.to_host.push(rows, start)
 
     def _evaluate(self, n: int) -> None:
-        parts, got = [], 0
-        while got < n:
-            f, rows, chunk = self.pool[0]
-            k = min(n - got, f.shape[0])
-            parts.append((f[:k], rows[:k], chunk))
-            if k == f.shape[0]:
-                self.pool.popleft()
-            else:
-                self.pool[0] = [f[k:], rows[k:], chunk]
-            got += k
-        out, dev = sample_program_with_deviation(
-            self.shard.tables, torch.cat([f for f, _, _ in parts]), self.shard.generator
-        )
-        out = out ^ self.fold_kept
-        self.worst = torch.maximum(self.worst, dev)
-        at = 0
-        for f, rows, chunk in parts:
-            chunk[1].index_copy_(0, rows, out[at : at + f.shape[0]])
-            chunk[2] -= f.shape[0]
-            at += f.shape[0]
-        self.pooled -= n
+        with span("tsim.postsel.evaluate", rows=n):
+            parts, got = [], 0
+            while got < n:
+                f, rows, chunk = self.pool[0]
+                k = min(n - got, f.shape[0])
+                parts.append((f[:k], rows[:k], chunk))
+                if k == f.shape[0]:
+                    self.pool.popleft()
+                else:
+                    self.pool[0] = [f[k:], rows[k:], chunk]
+                got += k
+            out, dev = sample_program_with_deviation(
+                self.shard.tables, torch.cat([f for f, _, _ in parts]), self.shard.generator
+            )
+            out = out ^ self.fold_kept
+            self.worst = torch.maximum(self.worst, dev)
+            at = 0
+            for f, rows, chunk in parts:
+                chunk[1].index_copy_(0, rows, out[at : at + f.shape[0]])
+                chunk[2] -= f.shape[0]
+                at += f.shape[0]
+            self.pooled -= n
 
     def close(self) -> None:
         self.to_host.close()
@@ -1114,13 +1120,15 @@ class _CompiledSamplerBase:
         memory of each device over its shards' peak bytes a row
         (:meth:`_peak_bytes_per_sample`), the least over the devices."""
         shards_on = collections.Counter(s.device for s in self._shards)
-        rows = []
+        rows, reads = [], 0
         for device, k in shards_on.items():
             if device.type == "cuda":
                 available, _total = torch.cuda.mem_get_info(device)
+                reads += 1
             else:
                 available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
             rows.append(int(available * 0.5) // self._peak_bytes_per_sample(device, postselected) // k)
+        note(mem_reads=reads)
         return max(1, min(rows))
 
     def _estimate_batch_size(self, postselected: bool = False) -> int:
@@ -1143,14 +1151,18 @@ class _CompiledSamplerBase:
         rows than its budget: ``batch_size`` or by default the budget, at
         most DEFAULT_ROWS_PER_CARD, times the shards, evened out over the
         batches; the shards as :meth:`_shards_for` picks them for a batch of
-        that size."""
-        auto = self._mesh is not None and self._mesh_spec == "auto"
-        card_rows = self._card_rows(postselected) if batch_size is None or auto else None
-        if batch_size is None:
-            per_card = min(card_rows, DEFAULT_ROWS_PER_CARD)
-            num_batches = max(1, ceil(shots / (per_card * len(self._shards))))
-            batch_size = ceil(shots / num_batches)
-        return batch_size, self._shards_for(min(batch_size, shots), card_rows)
+        that size. Its ``tsim.plan`` span counts the batch's rows, its
+        shards and the reads of a card's free memory (``mem_reads``)."""
+        with span("tsim.plan", mem_reads=0):
+            auto = self._mesh is not None and self._mesh_spec == "auto"
+            card_rows = self._card_rows(postselected) if batch_size is None or auto else None
+            if batch_size is None:
+                per_card = min(card_rows, DEFAULT_ROWS_PER_CARD)
+                num_batches = max(1, ceil(shots / (per_card * len(self._shards))))
+                batch_size = ceil(shots / num_batches)
+            shards = self._shards_for(min(batch_size, shots), card_rows)
+            note(batch_rows=batch_size, shards=len(shards))
+        return batch_size, shards
 
     def _reference_sample(self) -> np.ndarray:
         """The outputs of the all-zero noise row, (num_outputs,) bool.
@@ -1171,24 +1183,21 @@ class _CompiledSamplerBase:
             self._reference = out[0].cpu().numpy().astype(np.bool_)
         return self._reference
 
-    def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None, stage=None) -> np.ndarray:
+    def _sample_batches(self, shots: int, batch_size: int | None = None, fold=None) -> np.ndarray:
         """(shots, num_outputs) bool samples; ``fold``, a (num_outputs,) bool
         row, is XORed into every row on the device (the reference folds).
         Each batch is split over the shards (one when unsharded) as
         ``tensor_split`` cuts it, each shard's rows contiguous in the result.
         A fully-direct program is drawn on the host in one go
-        (``batch_size`` unused) and folded there. ``stage(name)``, if given,
-        is called as each stage of a batch ends: "noise" and "ladder" for
-        each shard (:meth:`_sample_batch`), "push" once every shard's rows
-        are pushed, and "close" once the last rows are in the result.
+        (``batch_size`` unused) and folded there.
 
         On a card a shard's full batches (its share of the first batch's
         rows) go through its captured step (:meth:`_batch_step`): the first
         batch of a size runs eagerly, the next is captured, and the later
-        ones replay it, in this call and in later ones. A shorter last batch,
-        every batch with ``stage`` given, and every batch on the CPU run
-        eagerly. ``last_batch_steps`` counts the call's "eager" batches and
-        its "capture"s and "replay"s (a captured batch is replayed too).
+        ones replay it, in this call and in later ones. A shorter last batch
+        and every batch on the CPU run eagerly. ``last_batch_steps`` counts
+        the call's "eager" batches and its "capture"s and "replay"s (a
+        captured batch is replayed too).
         Each batch's norm deviation goes into a running maximum on its
         device, read once a device at the end."""
         self._validate_shot_args(shots, batch_size)
@@ -1213,7 +1222,7 @@ class _CompiledSamplerBase:
             sizes = shard_sizes(min(batch_size, shots - start), len(shards))
             # Every shard's noise and ladder are enqueued before any copy.
             batches = [
-                self._batch_step(s, n, stage, steps, graphed=stage is None and n == f, busy=shards) if n else None
+                self._batch_step(s, n, steps, graphed=n == f, busy=shards) if n else None
                 for s, n, f in zip(shards, sizes, full)
             ]
             at = start
@@ -1234,47 +1243,47 @@ class _CompiledSamplerBase:
                             out = out.clone()
                         sink.push(out, at)
                 at += n
-            if stage:
-                stage("push")
         for sink in to_host:
             sink.close()
-        if stage:
-            stage("close")
         self.last_batch_steps = dict(steps)
         self.last_norm_deviation = _worst(worst.items())
         _check_norm_deviation(self.last_norm_deviation, self.evaluation)
         return result
 
-    def _batch_step(self, shard: _Shard, rows: int, stage, steps: collections.Counter,
+    def _batch_step(self, shard: _Shard, rows: int, steps: collections.Counter,
                     graphed: bool, busy: list[_Shard]) -> tuple[torch.Tensor, torch.Tensor, bool]:
         """Enqueue one shard's batch of ``rows`` rows: (bits, (1,) deviation,
         whether they are a replay's static outputs). A ``graphed`` batch on a
         card goes through the shard's captured step as :func:`_step_action`
         decides; any other batch is :meth:`_sample_batch`. Counts the step
-        in ``steps``. A capture first drops the graphs of the shards on the
-        same device that the call (``busy``, its shards) does not use: under
-        mesh="auto" the unsharded shard and the mesh's first share card 0,
-        and a device keeps only the graphs of one call's shards, which the
-        memory model counts."""
-        if not (graphed and _graphs_on(shard.device)):
-            steps["eager"] += 1
-            return (*self._sample_batch(rows, stage, shard=shard), False)
-        action = _step_action(shard.warm_rows, None if shard.graph is None else shard.graph.rows, rows)
-        if action == "eager":
-            shard.warm_rows = rows
-            steps["eager"] += 1
-            return (*self._sample_batch(rows, shard=shard), False)
-        with on_device(shard.device):
-            if action == "capture":
-                # The graph of another size goes before the new one is made.
-                for other in self._every_shard():
-                    if other.device == shard.device and (other is shard or all(other is not b for b in busy)):
-                        other.graph = None
-                shard.graph = _StepGraph(self, shard, rows)
-                steps["capture"] += 1
-            steps["replay"] += 1
-            out, dev = shard.graph.replay()
-        return out, dev, True
+        in ``steps``, and in its ``tsim.step`` span with its rows, device and
+        action; a capture's ``tsim.capture`` span holds the making of the
+        :class:`_StepGraph`. A capture first drops the graphs of the shards
+        on the same device that the call (``busy``, its shards) does not
+        use: under mesh="auto" the unsharded shard and the mesh's first
+        share card 0, and a device keeps only the graphs of one call's
+        shards, which the memory model counts."""
+        graphed = graphed and _graphs_on(shard.device)
+        action = (_step_action(shard.warm_rows, None if shard.graph is None else shard.graph.rows, rows)
+                  if graphed else "eager")
+        with span("tsim.step", rows=rows, device=shard.device, action=action):
+            if action == "eager":
+                if graphed:
+                    shard.warm_rows = rows
+                steps["eager"] += 1
+                return (*self._sample_batch(rows, shard=shard), False)
+            with on_device(shard.device):
+                if action == "capture":
+                    # The graph of another size goes before the new one is made.
+                    for other in self._every_shard():
+                        if other.device == shard.device and (other is shard or all(other is not b for b in busy)):
+                            other.graph = None
+                    with span("tsim.capture", rows=rows):
+                        shard.graph = _StepGraph(self, shard, rows)
+                    steps["capture"] += 1
+                steps["replay"] += 1
+                out, dev = shard.graph.replay()
+            return out, dev, True
 
     def _drop_graphs(self) -> None:
         """Forget every shard's captured step and warmed-up size, so the
@@ -1291,8 +1300,8 @@ class _CompiledSamplerBase:
         one by default), eagerly: ((shots, num_outputs) uint8 bits, (1,) max
         norm deviation), both on its device. The step a shard's graph
         captures. ``stage(name)``, if given, is called as each ends, with
-        "noise" or "ladder" (a profiler's hook; "d2h" and "host" are
-        :class:`_RowsToHost`'s push and close)."""
+        "noise" or "ladder": the hook of a serialised split of an eager step
+        (``dev/torch_profile_d3.py``); the batch loop passes none."""
         shard = shard or self._shards_for(shots)[0]
         mark = stage or (lambda name: None)
         with on_device(shard.device):
@@ -1352,7 +1361,10 @@ class _CompiledSamplerBase:
             live = [run for run in runs if not run.done]
             counts = [run.draw() for run in live]
             for run, count in zip(live, counts):
-                run.take(int(count))  # the chunk's one host read
+                with span("tsim.postsel.read"):
+                    survivors = int(count)  # the chunk's one host read
+                    note(survivors=survivors)
+                run.take(survivors)
         for run in runs:
             run.close()
         self.last_norm_deviation = _worst((run.shard.device, run.worst) for run in runs)
@@ -1365,7 +1377,8 @@ class CompiledMeasurementSampler(_CompiledSamplerBase):
     compiles without detectors, sequential ladder)."""
 
     def sample(self, shots: int, *, batch_size: int | None = None) -> np.ndarray:
-        return self._sample_batches(shots, batch_size)
+        with span("tsim.sample", shots=shots):
+            return self._sample_batches(shots, batch_size)
 
 
 def _maybe_bit_pack(array: np.ndarray, *, bit_packed: bool) -> np.ndarray:
@@ -1409,76 +1422,77 @@ class CompiledDetectorSampler(_CompiledSamplerBase):
         append_observables: bool = False,
         separate_observables: bool = False,
     ):
-        if separate_observables and (prepend_observables or append_observables):
-            raise ValueError(
-                "separate_observables=True is mutually exclusive with the "
-                "prepend/append observable layouts"
-            )
-        if (
-            postselection_mask is None
-            and not (use_detector_reference_sample or use_observable_reference_sample)
-            and not prepend_observables
-            and self.direct_route == "native_frame"
-        ):
-            # The frame engine gives detectors and observables in their
-            # final (bit-packed) layout; det_bias made the detectors absolute.
-            _, det, obs = self._native_frame_sampler().sample(
-                shots, bit_packed=bit_packed, include_measurements=False
-            )
-            if separate_observables:
-                return det, obs
-            if append_observables:
-                if bit_packed:
-                    joined = np.concatenate(
-                        [
-                            np.unpackbits(det, axis=1, bitorder="little")[:, : self._num_detectors],
-                            np.unpackbits(obs, axis=1, bitorder="little")[
-                                :, : self._program.num_outputs - self._num_detectors
+        with span("tsim.sample", shots=shots):
+            if separate_observables and (prepend_observables or append_observables):
+                raise ValueError(
+                    "separate_observables=True is mutually exclusive with the "
+                    "prepend/append observable layouts"
+                )
+            if (
+                postselection_mask is None
+                and not (use_detector_reference_sample or use_observable_reference_sample)
+                and not prepend_observables
+                and self.direct_route == "native_frame"
+            ):
+                # The frame engine gives detectors and observables in their
+                # final (bit-packed) layout; det_bias made the detectors absolute.
+                _, det, obs = self._native_frame_sampler().sample(
+                    shots, bit_packed=bit_packed, include_measurements=False
+                )
+                if separate_observables:
+                    return det, obs
+                if append_observables:
+                    if bit_packed:
+                        joined = np.concatenate(
+                            [
+                                np.unpackbits(det, axis=1, bitorder="little")[:, : self._num_detectors],
+                                np.unpackbits(obs, axis=1, bitorder="little")[
+                                    :, : self._program.num_outputs - self._num_detectors
+                                ],
                             ],
-                        ],
-                        axis=1,
-                    ).astype(bool)
-                    return _maybe_bit_pack(joined, bit_packed=True)
-                return np.concatenate([det, obs], axis=1)
-            return det
-        prefilter_mask = self._coerce_postselection_mask(postselection_mask)
-        nd = self._num_detectors
-        if prefilter_mask is None:
-            # Every shot is evaluated; the reference folds apply to all of them.
-            fold = None
-            if (use_detector_reference_sample or use_observable_reference_sample) and shots:
-                reference = self._reference_sample()
-                fold = np.zeros_like(reference)
-                if use_detector_reference_sample:
-                    fold[:nd] = reference[:nd]
-                if use_observable_reference_sample:
-                    fold[nd:] = reference[nd:]
-            samples = self._sample_batches(shots, batch_size, fold)
-        else:
-            # The detector fold decides which shots the prefilter discards;
-            # discarded shots are never evaluated, so the observable fold
-            # touches the survivors only.
-            samples = self._sample_batches_with_postselection(
-                shots,
-                batch_size,
-                postselection_mask=prefilter_mask,
-                fold_detector_reference=use_detector_reference_sample,
-                fold_observable_reference=use_observable_reference_sample,
-            )
-        det = samples[:, :nd]
-        obs = samples[:, nd:]
-        if prepend_observables and append_observables:
-            return _maybe_bit_pack(np.concatenate([obs, det, obs], axis=1), bit_packed=bit_packed)
-        if append_observables:
-            return _maybe_bit_pack(samples, bit_packed=bit_packed)
-        if prepend_observables:
-            return _maybe_bit_pack(np.concatenate([obs, det], axis=1), bit_packed=bit_packed)
-        if separate_observables:
-            return (
-                _maybe_bit_pack(det, bit_packed=bit_packed),
-                _maybe_bit_pack(obs, bit_packed=bit_packed),
-            )
-        return _maybe_bit_pack(det, bit_packed=bit_packed)
+                            axis=1,
+                        ).astype(bool)
+                        return _maybe_bit_pack(joined, bit_packed=True)
+                    return np.concatenate([det, obs], axis=1)
+                return det
+            prefilter_mask = self._coerce_postselection_mask(postselection_mask)
+            nd = self._num_detectors
+            if prefilter_mask is None:
+                # Every shot is evaluated; the reference folds apply to all of them.
+                fold = None
+                if (use_detector_reference_sample or use_observable_reference_sample) and shots:
+                    reference = self._reference_sample()
+                    fold = np.zeros_like(reference)
+                    if use_detector_reference_sample:
+                        fold[:nd] = reference[:nd]
+                    if use_observable_reference_sample:
+                        fold[nd:] = reference[nd:]
+                samples = self._sample_batches(shots, batch_size, fold)
+            else:
+                # The detector fold decides which shots the prefilter discards;
+                # discarded shots are never evaluated, so the observable fold
+                # touches the survivors only.
+                samples = self._sample_batches_with_postselection(
+                    shots,
+                    batch_size,
+                    postselection_mask=prefilter_mask,
+                    fold_detector_reference=use_detector_reference_sample,
+                    fold_observable_reference=use_observable_reference_sample,
+                )
+            det = samples[:, :nd]
+            obs = samples[:, nd:]
+            if prepend_observables and append_observables:
+                return _maybe_bit_pack(np.concatenate([obs, det, obs], axis=1), bit_packed=bit_packed)
+            if append_observables:
+                return _maybe_bit_pack(samples, bit_packed=bit_packed)
+            if prepend_observables:
+                return _maybe_bit_pack(np.concatenate([obs, det], axis=1), bit_packed=bit_packed)
+            if separate_observables:
+                return (
+                    _maybe_bit_pack(det, bit_packed=bit_packed),
+                    _maybe_bit_pack(obs, bit_packed=bit_packed),
+                )
+            return _maybe_bit_pack(det, bit_packed=bit_packed)
 
 
 class CompiledStateProbs(_CompiledSamplerBase):
@@ -1518,22 +1532,23 @@ class CompiledStateProbs(_CompiledSamplerBase):
         the stream an unsharded estimator draws; with a mesh its rows are
         split over the mesh, evaluated where each shard lies and gathered,
         so sharded and unsharded give the same values on the same seed."""
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be at least 1, got {batch_size}")
-        expected = self._program.num_outputs
-        state = np.asarray(state)
-        if state.shape != (expected,):
-            raise ValueError(f"state must have shape ({expected},), got {state.shape}")
-        f_samples = self._device_channels.sample(self._generator, batch_size)
-        devices = [shard.device for shard in self._shards_for(batch_size)]
-        if len(devices) == 1:
-            return self._probability_body(f_samples, state).cpu().numpy()
-        parts = []
-        for device, f in zip(devices, torch.tensor_split(f_samples, len(devices))):
-            if f.shape[0]:
-                with on_device(device):
-                    parts.append(self._probability_body(f.to(device), state, self._replicas[device]))
-        return np.concatenate([p.cpu().numpy() for p in parts])
+        with span("tsim.sample", shots=batch_size):
+            if batch_size < 1:
+                raise ValueError(f"batch_size must be at least 1, got {batch_size}")
+            expected = self._program.num_outputs
+            state = np.asarray(state)
+            if state.shape != (expected,):
+                raise ValueError(f"state must have shape ({expected},), got {state.shape}")
+            f_samples = self._device_channels.sample(self._generator, batch_size)
+            devices = [shard.device for shard in self._shards_for(batch_size)]
+            if len(devices) == 1:
+                return self._probability_body(f_samples, state).cpu().numpy()
+            parts = []
+            for device, f in zip(devices, torch.tensor_split(f_samples, len(devices))):
+                if f.shape[0]:
+                    with on_device(device):
+                        parts.append(self._probability_body(f.to(device), state, self._replicas[device]))
+            return np.concatenate([p.cpu().numpy() for p in parts])
 
     def _probability_body(self, f_samples: torch.Tensor, state, tables: ProgramTables | None = None) -> torch.Tensor:
         """P(state | f) per row of (B, num_f) uint8 ``f_samples``: the direct
