@@ -29,7 +29,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    kernel (K7b) on d3's two small rungs (5 and 6 graphs) at 1024, 16,384
    and 2^20 + 1 rows, and the wide approximate kernel (K6) also on d3's three
    wide rungs and on 2^20 + 1 rows that the state-probability path draws
-   itself;
+   itself; on every rung K5 takes, its int32 partials equal the plain
+   reader of its node-phase fold (``compile/node_fold.py``) bit for bit on
+   4097 seeded rows and 4097 rows that solve the folded terms;
 6. state probabilities: ``distillation_d3(p=0.05).compile_state_probs(
    seed=0, device="cuda").probability_of(state, batch_size=2**20)`` for
    the exported states (values finite, in [0, 1]; calls/s and rows/s), and
@@ -163,8 +165,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
     (seed 1) 4 * 2^20 shots, norm deviation at most 3e-3, K1 and K2
     launched, every output's mean within 4 * sqrt(2) pooled sigma of the
     exact run's; then the 1084-graph rung alone at 2^20 + 1 rows: K5 equal
-    to the plain exact evaluator bit for bit and K1 within rtol 1e-5 of the
-    row's mass, each timed beside its bound;
+    to the plain exact evaluator bit for bit (and its partials to the plain
+    reader of its fold, as in phase 5) and K1 within rtol 1e-5 of the row's
+    mass, each timed beside its bound;
 25. batch planning, on the samplers of phases 4 (d3 f32), 7 (2-check
     exact), 10 (postselected 2-check f32), 12 (1-check f32) and 24 (grown
     exact and f32), not built again: each one's default batch
@@ -270,6 +273,7 @@ SMALL_SHOTS = 16 * SMALL_BATCH
 SWEEP_ROWS = (128, 1024, 4096, 8192, 16384, 32768, 65536)  # phase 8: rows at which K1's two instances are timed
 SWEPT = {("cultivation", 307), ("d3", 103)}  # (program, graphs) of the rungs swept
 SMALL_EXACT_ROWS = (1024, 16384)  # phase 5: K7a and K7b also at these rows
+FOLD_ROWS = 4097  # phases 5 and 24: rows a kind on which K5's partials meet the plain reader of its fold
 WIDE_PARAMS = 160  # parameters of the seeded rungs past the packed kernels' four words
 LONG_ROW_RUNGS = [(p, g) for p in (130, 200) for g in (5, 40)]  # (parameters, graphs) of phase 14
 LONG_ROW_COUNT = (1 << 16) + 1
@@ -458,6 +462,27 @@ def check_launched(label: str, launches: dict, expected) -> None:
         fail(f"{label}: kernels {missing} of the path were not launched")
 
 
+def check_fold_partials(label: str, t, x, seed: int) -> None:
+    """K5's int32 partials, coefficients and powers, against the plain reader
+    of its node-phase fold (``compile/node_fold.py``: K5's arithmetic step
+    for step on the CPU, the dead slots' reduce steps one by one, the sums in
+    the kernel's order), bit for bit, on FOLD_ROWS of the seeded rows ``x``
+    and on FOLD_ROWS rows that solve the folded terms."""
+    from tsim_tpu_torch.compile import node_fold
+    from tsim_tpu_torch.kernels import exact_eval as kernel
+
+    for kind, rows_ in (("seeded", x[:FOLD_ROWS]), ("standing", node_fold.standing_rows(t, FOLD_ROWS, seed))):
+        rows_ = rows_.to(x.device)
+        out_c, out_p = kernel.exact_partials(t, rows_)
+        want_c, want_p = node_fold.kernel_partials(t, rows_.cpu(), kernel.graph_tile(t.num_graphs))
+        if not (torch.equal(out_c.cpu(), want_c) and torch.equal(out_p.cpu(), want_p)):
+            fail(f"{label}: exact_wide's partials differ from the plain reader of its fold on {kind} rows")
+        share = float(node_fold.vanishing(t, rows_).float().mean())
+        print(f"{label}: exact_wide's int32 partials equal the plain reader of its fold bit for bit on "
+              f"{FOLD_ROWS} {kind} rows ({share:.3f} of the products vanish; node terms live, folded: "
+              f"{t.node_terms})", flush=True)
+
+
 def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
     """Phase 5: each exact kernel vs the plain exact evaluator on every rung
     at KERNEL_ROWS rows, and the timings of EXACT_TIMED.
@@ -504,6 +529,8 @@ def exact_kernel_phase(programs: dict, dev) -> tuple[dict, dict, dict]:
             if not ok:
                 fail(f"{label} rung {i}: {name} disagrees with the plain exact evaluator")
             del got, want, err
+            if name == "exact_wide":
+                check_fold_partials(f"{label} rung {i} G={t.num_graphs}", t, x, seed)
             if EXACT_TIMED[name] == (label, t.num_graphs) and name not in timing:
                 # In turns, plain, kernel, kernel, plain; the check above
                 # was the plain version's warm-up, and it is slow enough
@@ -1590,7 +1617,8 @@ def grown_phase(dev, planned: dict) -> tuple[dict, dict]:
     (norm deviation at most 1e-5, any warning of the norm monitor fails);
     f32 mode, 4 * 2^20 shots (at most 3e-3; every output's mean within 4 *
     sqrt(2) pooled sigma of the exact run's); then the 1084-graph rung alone
-    at 2^20 + 1 rows: K5 against the plain exact evaluator bit for bit, K1
+    at 2^20 + 1 rows: K5 against the plain exact evaluator bit for bit (its
+    partials against the plain reader of its fold, ``check_fold_partials``), K1
     against the f32 plain version within rtol 1e-5 of the row's mass, each
     timed beside its bound. Returns (exact launches, f32 launches); the two
     samplers and their rates go into ``planned`` (phase 25)."""
@@ -1662,6 +1690,7 @@ def grown_phase(dev, planned: dict) -> tuple[dict, dict]:
     if not torch.equal(got, want):
         fail(f"grown G={c.num_graphs}: exact_wide differs from the plain exact evaluator "
              f"({int((got != want).sum())} rows)")
+    check_fold_partials(f"grown G={c.num_graphs}", t, x, 400)
     k1 = time_ms(lambda: exact_kernel.exact_partials(t, x))
     k2 = time_ms(lambda: exact_kernel.exact_partials(t, x))
     bound = exact_bound(c, t, KERNEL_ROWS)

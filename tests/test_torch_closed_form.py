@@ -174,7 +174,8 @@ def test_float_tables_are_rounded_once_from_float64():
 
 def test_closed_form_segments_follow_the_layout(compiled):
     """An approximate rung's buffer holds the closed-form segments between the
-    integer tables and the lists; an exact rung's has none."""
+    integer tables and the lists, and no node-phase fold; an exact rung's has
+    no closed-form segments, and its fold after the lists."""
     tables = ExactTables(rung_from_reference(compiled["d3_state_probs"][1]))
     tc, bias = tables.closed_form
     assert tc == 18 == int(np.max(compiled["d3_state_probs"][1].node_phases.counts)) and bias >= 1
@@ -188,8 +189,14 @@ def test_closed_form_segments_follow_the_layout(compiled):
     assert not views["cf_delta"].numpy()[dead].any()  # a dead term carries a zero increment
 
     exact = ExactTables(rung_from_reference(compiled["d3_state_probs"][0]))
+    assert tables.fold is None and not any(n.startswith("nf_") for n in names)
+    exact = ExactTables(rung_from_reference(compiled["d3_state_probs"][0]))
     assert exact.closed_form is None and not any(n.startswith("cf_") for n, _, _ in exact.layout())
-    assert exact.layout() == exact_table_layout(*exact.dims, exact.num_graphs, exact.words, exact.list_words)
+    assert exact.layout() == exact_table_layout(
+        *exact.dims, exact.num_graphs, exact.words, exact.list_words, fold=exact.fold
+    )
+    names = [name for name, _, _ in exact.layout()]
+    assert names.index("bs_words") < names.index("nf_phases") < names.index("nv_base") and names[-1] == "nv_words"
 
 
 def _rung_of_one_phase(t1: int, phase: int, approximate: bool = True):

@@ -32,12 +32,12 @@ from tsim_tpu.core.exact_scalar import ExactScalarArray as JaxESA
 from tsim_tpu.ops.gf2 import matmul_gf2 as jax_matmul_gf2
 from tests.test_torch_sample_eval import _CIRCUITS, _SYNTHETIC, _circuit_rungs, _scalar_csg
 from tsim_tpu_torch import program_io
-from tsim_tpu_torch.compile import evaluate, exact_eval, terms
+from tsim_tpu_torch.compile import evaluate, exact_eval, node_fold, terms
 from tsim_tpu_torch.compile.exact_tables import ExactTables
 from tsim_tpu_torch.compile.sample_eval import synthetic_rung
 from tsim_tpu_torch.core.exact_scalar import ExactScalarArray, exact_magnitude, exp2_int
 from tsim_tpu_torch.kernels import exact_eval as kernel
-from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3
+from tsim_tpu_torch.models.exported import cultivation_d3, distillation_d3, distillation_d5
 from tsim_tpu_torch.ops.gf2 import matmul_gf2
 from tsim_tpu_torch.program_io import rung_from_reference
 
@@ -277,13 +277,16 @@ def test_circuit_rungs_match(text):
 
 @pytest.fixture(scope="module")
 def committed_rungs():
-    """Every rung of the committed d3, d3 state-probability and cultivation
-    programs, as the port's numpy dataclasses (test_torch_program_io.py holds
-    each file equal to a fresh export from tsim_tpu)."""
+    """Every rung of the committed d3, d3 state-probability, 1- and 2-check
+    cultivation and d5 programs, as the port's numpy dataclasses
+    (test_torch_program_io.py holds each file equal to a fresh export from
+    tsim_tpu)."""
     programs = {
         "d3": distillation_d3(p=0.05).load(),
         "d3_state_probs": distillation_d3(p=0.05).load_state_probs(),
         "cultivation": cultivation_d3(p=0.001, checks=2).load(),
+        "cultivation_checks1": cultivation_d3(p=0.001, checks=1).load(),
+        "d5": distillation_d5(p=0.02).load(),
     }
     return {
         name: [c for comp in exported.program.components for c in comp.compiled_scalar_graphs]
@@ -447,3 +450,81 @@ def test_wrappers_refuse_cpu_tensors(committed_rungs):
         kernel.exact_partials(tables, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.approx_partials(tables, x)
+
+
+# ------------------------------------------------------- the node-phase fold
+
+# (program, rung) of every committed rung without approximate floatfactors.
+EXACT_RUNGS = (
+    [("d3", 0), ("d3_state_probs", 0), ("d5", 0)]
+    + [("cultivation_checks1", i) for i in range(9)]
+    + [("cultivation", i) for i in range(10)]
+)
+
+
+def test_node_fold_counts():
+    """The fold takes 7213 of the 7924 live node-phase terms of 2-check
+    cultivation's eight wide rungs, 2672 of 3190 on the 307-graph rung, which
+    keeps at most 4 terms a graph and folds at most 13."""
+    rungs = cultivation_d3(p=0.001, checks=2).load().program.components[0].compiled_scalar_graphs
+    counts = {int(c.num_graphs): ExactTables(c).node_terms for c in rungs[2:5]}
+    assert counts == {168: (1005, 964), 205: (1068, 1032), 235: (1897, 1781)}
+    for c, live in zip(rungs[5:9], (143, 175, 207, 239)):
+        assert c.num_graphs == 32 and ExactTables(c).node_terms == (live, live)
+    tables = ExactTables(rungs[9])
+    assert tables.num_graphs == 307 and tables.node_terms == (3190, 2672)
+    assert tables.fold[:2] == (4, 13) and tables.dims[0] == 15
+    wide = [ExactTables(c).node_terms for c in rungs[2:]]
+    assert tuple(map(sum, zip(*wide))) == (7924, 7213)
+    v = tables.views()
+    assert (v["nf_dead"].numpy() == 15 - np.asarray(rungs[9].node_phases.counts)).all()
+    assert (v["nf_phases"].numpy() & 3 != 0)[np.arange(4)[:, None] < v["nf_counts"].numpy()].all()
+
+
+def _check_fold(csg, seed: int) -> None:
+    """The plain reader of the fold (K5's arithmetic, compile/node_fold.py)
+    against the same reader over every node-phase slot, graph by graph bit
+    for bit (coefficients and power of every product that is not 0), and its
+    per-tile exact partials against the plain evaluator's, on seeded rows
+    (most products vanish) and rows that solve the folded terms (few do)."""
+    tables = ExactTables(csg)
+    x = _t(np.concatenate([_rows(csg.n_params, 24, seed), node_fold.standing_rows(tables, 40, seed)]))
+    folded, whole = node_fold.graph_products(tables, x), node_fold.graph_products(tables, x, fold=False)
+    zero = node_fold._is_zero(whole[0])
+    vanish = node_fold.vanishing(tables, x)
+    assert not (vanish & ~zero).any()
+    assert node_fold._is_zero(folded[0])[zero].all()
+    np.testing.assert_array_equal(folded[0][:, ~zero].numpy(), whole[0][:, ~zero].numpy())
+    np.testing.assert_array_equal(folded[1][~zero].numpy(), whole[1][~zero].numpy())
+    if tables.node_terms[1]:
+        assert vanish.any() and (~zero).any()
+
+    tile = kernel.graph_tile(csg.num_graphs)
+    out_c, out_p = node_fold.kernel_partials(tables, x, tile)
+    before = node_fold.kernel_partials(tables, x, tile, fold=False)
+    np.testing.assert_array_equal(out_c.numpy(), before[0].numpy())
+    np.testing.assert_array_equal(out_p.numpy(), before[1].numpy())
+    for i, g0 in enumerate(range(0, csg.num_graphs, tile)):
+        plain = evaluate.exact_sum(_graph_slice(csg, np.arange(g0, min(g0 + tile, csg.num_graphs))), x)
+        got = _canonical(out_c[i].T.numpy(), out_p[i].numpy())
+        for a, b in zip(got, _canonical(plain.coeffs.numpy(), plain.power.numpy())):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        exact_eval.combine_partials(out_c, out_p).numpy(), evaluate.evaluate_abs(csg, x).numpy()
+    )
+
+
+@pytest.mark.parametrize("program,rung", EXACT_RUNGS, ids=[f"{p}[{r}]" for p, r in EXACT_RUNGS])
+def test_folded_tables_read_as_the_plain_evaluator(committed_rungs, program, rung):
+    _check_fold(committed_rungs[program][rung], rung)
+
+
+@pytest.mark.parametrize("n_params", [42, 300])
+def test_folded_tables_of_seeded_rungs_read_as_the_plain_evaluator(n_params):
+    """Seeded rungs of 40 graphs whose node phases take all eight values, so
+    that kept terms of every phase and sign meet phase pairs; the lists index
+    parameters in one byte at 42 parameters, in two at 300."""
+    csg = synthetic_rung(n_params, 40, n_params, (8, 3, 3, 2))
+    phases = np.asarray(csg.node_phases.phases)
+    assert set(np.unique(phases)) == set(range(8))
+    _check_fold(csg, n_params)

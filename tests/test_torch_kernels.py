@@ -22,7 +22,7 @@ import torch
 from tsim_tpu_torch.compile.evaluate import evaluate_abs, exact_sum
 from tsim_tpu_torch.compile.exact_eval import evaluate_abs_exact
 from tsim_tpu_torch.compile.exact_tables import ExactTables
-from tsim_tpu_torch.compile import sample_eval
+from tsim_tpu_torch.compile import node_fold, sample_eval
 from tsim_tpu_torch.compile.sample_eval import evaluate_abs_sample, sample_product_sum_reference, synthetic_rung
 from tsim_tpu_torch.compile.sample_tables import SampleTables
 from tsim_tpu_torch.kernels import build
@@ -364,6 +364,35 @@ def test_exact_kernels_take_rows_over_128_parameters(cuda, n_params, batch):
             else:
                 assert torch.equal(got, want), (graphs, batch)
     assert min(exact_kernel.launch_counts[k] for k in exact_kernel.KERNELS) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 129, 4097])
+def test_exact_wide_equals_the_plain_reader_of_its_fold(exact_rungs, cuda, batch):
+    """K5's int32 partials, coefficients and powers, equal bit for bit those
+    of the plain reader of its node-phase fold (compile/node_fold.py: K5's
+    arithmetic step for step, the dead slots' reduce steps one by one, the
+    sums in the kernel's order) on every wide exact rung of the committed
+    programs (1-check cultivation's too) and on seeded rungs of 40 graphs
+    over 42 and 300 parameters, on seeded rows (most products vanish, and
+    many blocks skip a graph) and on rows that solve the folded terms."""
+    rungs = [(n, c) for n, c in exact_rungs if c.num_graphs >= kernel.SMALL_G_CUTOFF]
+    checks1 = cultivation_d3(p=0.001, checks=1).load().program.components[0].compiled_scalar_graphs
+    rungs += [(f"cultivation1[{i}]", c) for i, c in enumerate(checks1) if c.num_graphs >= kernel.SMALL_G_CUTOFF]
+    rungs += [(f"seeded P={p}", synthetic_rung(p, 40, p, (8, 3, 3, 2))) for p in (42, 300)]
+    exact_kernel.reset_launch_counts()
+    seen = 0
+    for i, (name, csg) in enumerate(rungs):
+        tables = ExactTables(csg).to(cuda)
+        if tables.approximate:
+            continue
+        for rows in (_rows(tables.n_params, batch, seed=i), node_fold.standing_rows(tables, batch, i)):
+            out_c, out_p = exact_kernel.exact_partials(tables, rows.to(cuda))
+            want_c, want_p = node_fold.kernel_partials(tables, rows, exact_kernel.graph_tile(csg.num_graphs))
+            assert torch.equal(out_c.cpu(), want_c) and torch.equal(out_p.cpu(), want_p), (name, batch)
+        seen += 1
+    assert seen == 8 + 1 + 2
+    assert exact_kernel.launch_counts["exact_wide"] == 2 * seen
 
 
 def _canonical(coeffs: torch.Tensor, power: torch.Tensor):

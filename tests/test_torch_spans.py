@@ -187,6 +187,29 @@ def test_a_compile_is_a_span_that_says_whether_the_cache_held_it(tmp_path, monke
     assert [s.counts for s in named(spans, "tsim.compile")] == [{"cache_hit": False}, {"cache_hit": True}]
 
 
+@pytest.mark.parametrize("evaluation", ["f32", "exact"])
+def test_the_tables_build_is_a_span_that_counts_the_node_phase_fold(evaluation):
+    """Set-up builds the evaluator tables inside ``tsim.tables``, which gives
+    each exact rung's graphs, live node-phase terms and those that
+    exact_wide's fold takes: in exact mode every rung of 2-check
+    cultivation, and of d3 the one rung without approximate floatfactors; in
+    f32 mode none (every rung takes the f32 tables)."""
+    cult2 = cultivation_d3(p=0.001, checks=2)
+    _, spans = recorded(lambda: cult2.compile_detector_sampler(seed=2, device="cpu", evaluation=evaluation))
+    (tables,) = named(spans, "tsim.tables")
+    exact = evaluation == "exact"
+    assert tables.counts == {
+        "evaluation": evaluation,
+        "exact_rung_graphs": [1, 4, 168, 205, 235, 32, 32, 32, 32, 307] if exact else [],
+        "live_node_terms": [0, 6, 1005, 1068, 1897, 143, 175, 207, 239, 3190] if exact else [],
+        "folded_node_terms": [0, 6, 964, 1032, 1781, 143, 175, 207, 239, 2672] if exact else [],
+    }
+    _, spans = recorded(lambda: D3.compile_detector_sampler(seed=2, device="cpu", evaluation=evaluation))
+    (d3,) = named(spans, "tsim.tables")
+    assert d3.counts["exact_rung_graphs"] == ([1] if exact else [])
+    assert d3.counts["folded_node_terms"] == ([0] if exact else [])
+
+
 def test_a_capture_is_a_span_inside_its_step(monkeypatch):
     monkeypatch.setattr(port_sampler, "_graphs_on", lambda device: True)
     monkeypatch.setattr(port_sampler, "_StepGraph", _EagerStepGraph)

@@ -137,7 +137,12 @@ def ordered_rows(circuit) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 def build_bit_lists(circuit) -> dict:
     """Named numpy list segments of one rung (see :func:`bit_list_layout`)."""
-    masks, aux, lengths = ordered_rows(circuit)
+    return pack_lists(*ordered_rows(circuit))
+
+
+def pack_lists(masks: np.ndarray, aux: np.ndarray, lengths: np.ndarray) -> dict:
+    """The list segments of rows in list order: masks (R, G, P) 0/1, aux (R,
+    G) and the live lengths (2, G) of :func:`ordered_rows`."""
     R, G, P = masks.shape
     if P > MAX_PARAMS:
         raise ValueError(f"{P} parameters: the bit lists index at most {MAX_PARAMS}")

@@ -13,7 +13,9 @@ these), and listed by set parameter for the kernels' bit-sliced front ends
 (``compile/bit_lists.py``). A rung with approximate
 floatfactors also carries the closed-form tables of its node-phase family
 (``compile/closed_form.py``), which ``approx_wide`` reads in place of
-``np_phases``.
+``np_phases``; a rung without them the node-phase fold
+(``compile/node_fold.py``), which ``exact_wide`` reads in place of
+``np_phases`` and the bit lists.
 
 The TPU sorts graphs into buckets by live term count, because it pads
 each tile to its largest graph. Here each graph keeps its own counts:
@@ -37,22 +39,25 @@ from ..program_io import (
     PiProducts,
     ScalarPrefactor,
 )
-from .bit_lists import AHEAD, bit_list_layout, build_bit_lists, flatten_segment, view_segment
+from .bit_lists import AHEAD, bit_list_layout, flatten_segment, ordered_rows, pack_lists, view_segment
 from .closed_form import build_closed_form, closed_form_layout
+from .node_fold import build_node_fold, node_fold_layout
 from .sample_tables import num_words, pack_words, unpack_words
 
 
 def exact_table_layout(
     t1: int, t2: int, t3: int, t4: int, g: int, w: int, list_words: int = 0,
-    closed_form: tuple | None = None,
+    closed_form: tuple | None = None, fold: tuple | None = None,
 ) -> list:
     """Segments of the flat buffer: ``(name, shape, kind)`` in storage order.
 
     ``kind`` is ``"i32"``, ``"f32"`` or ``"words"``; an approximate rung's
     closed-form segments (``closed_form = (tc, bias)``, see
-    ``closed_form.closed_form_layout``) follow the integer tables, and the bit
-    lists, a stream of ``list_words`` words a graph, come last. The CUDA
-    kernel's ``make_tables`` walks the same order; the two must change
+    ``closed_form.closed_form_layout``) follow the integer tables, then the bit
+    lists, a stream of ``list_words`` words a graph; an exact rung's
+    node-phase fold (``fold = (k, f, kept_words, folded_words)``, see
+    ``node_fold.node_fold_layout``) comes last. The CUDA kernel's
+    ``make_tables`` and ``make_fold`` walk the same order; they must change
     together.
     """
     return [
@@ -77,6 +82,7 @@ def exact_table_layout(
         ("pf_pow", (g,), "i32"),
         *(closed_form_layout(*closed_form, g) if closed_form else []),
         *bit_list_layout(t1, t2, t3, t4, g, list_words),
+        *(node_fold_layout(*fold[:2], t2, t3, t4, g, *fold[2:]) if fold else []),
     ]
 
 
@@ -103,6 +109,7 @@ def build_exact_tables(circuit) -> dict:
     def i32(a):
         return np.asarray(a, np.int64).astype(np.int32)
 
+    rows = ordered_rows(circuit)
     hp_live = ((i32(hp.coeffs) & 7) != 0) & np.asarray(hp.params, bool).any(axis=2)
     psi_live = (i32(pp.psi_const) & 1 != 0) | np.asarray(pp.psi_params, bool).any(axis=2)
     phi_live = (i32(pp.phi_const) & 1 != 0) | np.asarray(pp.phi_params, bool).any(axis=2)
@@ -126,7 +133,8 @@ def build_exact_tables(circuit) -> dict:
         pf_phase=i32(pf.phase_indices) & 7,
         pf_ff=i32(pf.floatfactor).T,
         pf_pow=i32(pf.power2),
-        **build_bit_lists(circuit),
+        **pack_lists(*rows),
+        **({} if pf.has_approximate_floatfactors else build_node_fold(circuit, *rows)),
     )
 
 
@@ -140,7 +148,14 @@ class ExactTables(nn.Module):
     (words a graph of the bit lists' stream), ``approximate`` (the rung has
     approximate floatfactors) and ``closed_form``: ``(tc, bias)`` of an
     approximate rung's closed-form tables (the most live node-phase terms a
-    graph has, the largest ``|e|`` a row can reach), None on an exact rung.
+    graph has, the largest ``|e|`` a row can reach), None on an exact rung;
+    ``fold``: ``(k, f, kept_words, folded_words)`` of an exact rung's
+    node-phase fold (the most kept and folded terms a graph has, the words a
+    graph of its two streams), None on an approximate rung;
+    ``fold_offsets``: the words of ``flat`` where the fold's segments and its
+    folded terms' stream start; ``node_terms``: the exact
+    rung's live node-phase terms and how many of them the fold takes, summed
+    over its graphs.
     """
 
     def __init__(self, circuit):
@@ -162,19 +177,29 @@ class ExactTables(nn.Module):
             self.closed_form = (closed.pop("tc"), closed.pop("bias"))
             tables.update(closed)
         self.list_words = tables["bs_words"].shape[0] - AHEAD
-        parts = []
+        self.fold = self.node_terms = None
+        if not self.approximate:
+            self.fold = (
+                tables["nf_phases"].shape[0], tables["nv_meta"].shape[0],
+                tables["nf_words"].shape[0] - AHEAD, tables["nv_words"].shape[0] - AHEAD,
+            )
+            live = int(tables["np_counts"].sum())
+            self.node_terms = (live, live - int(tables["nf_counts"].sum()))
+        parts, offsets, at = [], {}, 0
         for name, shape, kind in self.layout():
             a = tables[name]
             if a.shape != shape:
                 raise ValueError(f"table {name}: shape {a.shape}, expected {shape}")
             parts.append(flatten_segment(a, kind))
+            offsets[name], at = at, at + len(parts[-1])
+        self.fold_offsets = (offsets["nf_phases"], offsets["nv_base"]) if self.fold else (0, 0)
         self.register_buffer("flat", torch.from_numpy(np.concatenate(parts)))
         approx = np.asarray(circuit.prefactor.approximate_floatfactors, np.float32).reshape(-1, 2)
         self.register_buffer("approx", torch.from_numpy(np.ascontiguousarray(approx.T)))
 
     def layout(self) -> list:
         return exact_table_layout(
-            *self.dims, self.num_graphs, self.words, self.list_words, self.closed_form
+            *self.dims, self.num_graphs, self.words, self.list_words, self.closed_form, self.fold
         )
 
     def views(self) -> dict:

@@ -116,7 +116,7 @@ def load() -> ctypes.CDLL:
         ]
         lib.tsim_sample_eval_ablate.restype = i32
         lib.tsim_exact_eval.argtypes = [
-            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,
+            vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i64, i32, i32, vp, vp, vp,
         ]
         lib.tsim_exact_eval.restype = i32
         lib.tsim_approx_eval.argtypes = [

@@ -314,6 +314,25 @@ __device__ __forceinline__ void integer_stage(const Lists& bl, int g, const Entr
   sliced[4 * stride] = bare;
 }
 
+// exact_wide's vanish entry (compile/node_fold.py): the OR over the rows of
+// `bl`, graph g's node-phase terms of phase 0 or 4 (T1 rows and no other
+// family), of each row's parity XOR its aux (1 for phase 4), so that bit s
+// of word k is set where shot 32 k + s has a factor 1 + w^4 = 0. `base` is
+// bl.base, read where it lies.
+template <int IB, int NG>
+__device__ __forceinline__ Entry<NG> vanish_stage(const Lists& bl, int g, const Entry<NG>* planes,
+                                                  const int32_t* base) {
+  Entry<NG> van{};
+  Walker<IB, NG> walk(bl, g, planes, base);
+  for (int t = 0; t < bl.T1; ++t) {
+    const uint32_t c = 0u - (uint32_t)(walk.aux() & 1);
+    const Entry<NG> w = walk.word();
+#pragma unroll
+    for (int k = 0; k < NG; ++k) van.w[k] |= w.w[k] ^ c;
+  }
+  return van;
+}
+
 // The values of one graph for a thread's NG shots (shot 32 k + lane of the
 // block for k < NG), read from the graph's column: bit `lane` of word k of
 // every entry. The parity source of the per-shot stage.
@@ -346,6 +365,8 @@ struct Column {
   __device__ __forceinline__ int bare(int k) const {
     return (col[(T1 + 2 * T4 + 4) * stride].w[k] >> lane) & 1;
   }
+  // exact_wide's vanish entry (vanish_stage), whole, after the kSliced ones.
+  __device__ __forceinline__ Entry<NG> vanish() const { return col[(T1 + 2 * T4 + kSliced) * stride]; }
 };
 
 // ---------------------------------------------------------- the small kernels

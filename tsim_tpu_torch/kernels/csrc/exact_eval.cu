@@ -24,7 +24,11 @@
 // acc + rot_a + rot_b - rot_(a+b) under the count, then a reduce step; the
 // prefactor rotation; the floatfactor product and a reduce step; + power2.
 // Dead rows of the half-pi and pi-product families are skipped: they
-// contribute nothing.
+// contribute nothing. exact_wide takes the node-phase terms of phase 0 and 4
+// out of that loop (compile/node_fold.py has the algebra): their factor is
+// exactly 2 or 0, so each adds 1 to the graph's static power or makes the
+// product 0, and the int32 coefficients of every product that is not 0 stay
+// those of the loop over every slot, bit for bit.
 //
 // Exact sums shift to the smaller power (the shift clipped at 30) and then
 // take a reduce step, as the TPU kernel does; an exactly zero summand is
@@ -47,11 +51,15 @@
 //
 // What bounds the wide kernels on an H100: int32 instruction throughput in the
 // per-shot stage (about three quarters of exact_wide on 2-check
-// cultivation's 307-graph rung, two thirds of approx_wide on the 172-graph
-// state-probability rung; the integer stage, which forms the parities of a
-// graph for 128 shots at once, is most of the rest). For the exact finisher
-// that is a few dozen integer operations per shot, graph and term: rotations
-// are selects and adds, the reduce step a test and four shifts. For the
+// cultivation's 307-graph rung before the node-phase fold, two thirds of
+// approx_wide on the 172-graph state-probability rung; the integer stage,
+// which forms the parities of a graph for 128 shots at once, is most of the
+// rest). For the exact finisher that is a few dozen integer operations per
+// shot, graph and term: rotations are selects and adds, the reduce step a
+// test and four shifts. On that rung 2672 of the 3190 live node-phase terms
+// have phase 0 or 4; folded, they cost one OR a parity word per 32 shots in
+// the integer stage, and the graph's other terms (at most 4) a rotation by a
+// phase the warp shares, a sign per shot and a reduce step. For the
 // approximate one it is a bit extract and a multiply-add per shot, graph and
 // live slot, the phase pairs' rotations where a graph has any, and per graph
 // the conversion: a few dozen float operations and two table reads. The
@@ -61,11 +69,13 @@
 // What the design does about it. "wide" (G >= 24): a block takes 128 shots
 // and a tile of up to 128 graphs. In the integer stage a thread is a graph
 // and leaves the graph's parities for all 128 shots in its column of shared
-// memory. In the per-shot stage the block turns round: a lane is one shot of
-// each 32-shot group, and warp w takes the tile's graphs w, w + warps, ...,
-// so a graph's table entries are the same for all 32 lanes and are loaded
-// once for 128 shots, a thread carries four shots' products and running
-// sums, and no sum over graphs crosses lanes: each thread adds its graphs'
+// memory (exact_wide: the kept node-phase terms' parities, and one vanish
+// word a group for the folded ones). In the per-shot stage the block turns
+// round: a lane is one shot of each 32-shot group, and warp w takes the
+// tile's graphs w, w + warps, ..., so a graph's table entries are the same
+// for all 32 lanes and are loaded once for 128 shots, a thread carries four
+// shots' products and running sums (exact_wide: a warp skips a graph whose
+// 128 products all vanish), and no sum over graphs crosses lanes: each thread adds its graphs'
 // products one after the other (exact: the aligned add; float: in f32), the
 // warps' sums are added in order through shared memory, and each block writes
 // one partial per shot and graph tile, combined in torch. An exact sum has
@@ -173,6 +183,35 @@ Tables make_tables(const int32_t* flat, bool closed, int G, int T1, int T2, int 
   return t;
 }
 
+// exact_wide's node-phase fold (compile/node_fold.py), from word `fold` of the
+// flat buffer: the kept terms' phases and counts, the dead slots, the power
+// with the folded terms' +1s, and two list streams: the K kept terms' masks
+// and the other families', and from word `vanish` the F folded terms'.
+struct Fold {
+  const int32_t* phase;    // (K, G)
+  const int32_t* cnt;      // (G)
+  const int32_t* dead;     // (G): T1 less the graph's live node-phase terms
+  const int32_t* power;    // (G): pf_pow plus the graph's folded terms
+  bitsliced::Lists kept;   // K node-phase rows, then the half-pi, pi-product and phase-pair rows
+  bitsliced::Lists folded; // F node-phase rows, aux 1 for phase 4
+  int K;
+};
+
+Fold make_fold(const int32_t* flat, long long fold, long long vanish, int G, int K, int F, int T2,
+               int T3, int T4) {
+  const int32_t* p = flat + fold;
+  Fold f;
+  f.phase = p;
+  p += (long long)K * G;
+  f.cnt = p;
+  f.dead = p + G;
+  f.power = p + 2 * G;
+  f.kept = bitsliced::make_lists(p + 3 * G, G, K, T2, T3, T4);
+  f.folded = bitsliced::make_lists(flat + vanish, G, F, 0, 0, 0);
+  f.K = K;
+  return f;
+}
+
 // An exact value (c0 + c1 w + c2 w^2 + c3 w^3) * 2^p.
 struct Zw {
   int c[4];
@@ -190,6 +229,16 @@ __device__ __forceinline__ void reduce_step(Zw& v) {
     for (int j = 0; j < 4; ++j) v.c[j] >>= 1;
     v.p += 1;
   }
+}
+
+// n reduce steps: a shift by the number of times all four coefficients can be
+// halved, at most n (a zero value, whose power is never read, by at most 31).
+__device__ __forceinline__ void reduce_steps(Zw& v, int n) {
+  const unsigned bits = (unsigned)(v.c[0] | v.c[1] | v.c[2] | v.c[3]);
+  const int s = min(min(n, 31), __clz(__brev(bits)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v.c[j] >>= s;
+  v.p += s;
 }
 
 // _k_rot: the coefficients of w^k * a, staged on the bits of k.
@@ -267,38 +316,16 @@ __device__ __forceinline__ void pair_terms(const Tables& tb, int g, const Pariti
   }
 }
 
-// _product_body for graph g and NS shots: v[k] = the exact product of shot k;
-// `par` gives the shots' parities (bitsliced::Column after the wide integer
-// stage, bitsliced::ShotRows after the small front end).
+// The steps of _product_body after the node phases, for graph g and NS
+// shots: the half-pi rotation, the pi-product sign, the phase pairs, the
+// static prefactor (w^phase, the exact floatfactor, a reduce step) and the
+// power power[g].
 template <int NS, class Parities>
-__device__ __forceinline__ void product(const Tables& tb, int g, const Parities& par,
-                                        Zw (&v)[NS]) {
+__device__ __forceinline__ void finish_product(const Tables& tb, int g, const Parities& par,
+                                               const int32_t* power, Zw (&v)[NS]) {
   const int G = tb.G;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    v[k].c[0] = 1;
-    v[k].c[1] = v[k].c[2] = v[k].c[3] = 0;
-    v[k].p = 0;
-  }
   int p[NS];
   int r[4];
-
-  // Node phases: acc *= 1 + w^(phase + 4 parity), i.e. acc + rot(acc).
-  const int cnt1 = __ldg(tb.np_cnt + g);
-  for (int t = 0; t < tb.T1; ++t) {
-    if (t < cnt1) {
-      const int ph = __ldg(tb.np_phase + t * G + g);
-      par.node(t, p);
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        rot(v[k].c, (ph + 4 * p[k]) & 7, r);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[k].c[j] += r[j];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NS; ++k) reduce_step(v[k]);
-  }
 
   // Half-pi phases: one rotation by the summed phase mod 8.
   if (tb.T2) {
@@ -328,7 +355,7 @@ __device__ __forceinline__ void product(const Tables& tb, int g, const Parities&
   const int ph = __ldg(tb.pf_phase + g) & 7;
   const int f0 = __ldg(tb.pf_ff + g), f1 = __ldg(tb.pf_ff + G + g);
   const int f2 = __ldg(tb.pf_ff + 2 * G + g), f3 = __ldg(tb.pf_ff + 3 * G + g);
-  const int pw = __ldg(tb.pf_pow + g);
+  const int pw = __ldg(power + g);
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     rot(v[k].c, ph, r);
@@ -339,6 +366,91 @@ __device__ __forceinline__ void product(const Tables& tb, int g, const Parities&
     reduce_step(v[k]);
     v[k].p += pw;
   }
+}
+
+// _product_body for graph g and NS shots: v[k] = the exact product of shot k;
+// `par` gives the shots' parities (bitsliced::ShotRows after the small front
+// end). K7a's product; exact_wide forms folded_product.
+template <int NS, class Parities>
+__device__ __forceinline__ void product(const Tables& tb, int g, const Parities& par,
+                                        Zw (&v)[NS]) {
+  const int G = tb.G;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    v[k].c[0] = 1;
+    v[k].c[1] = v[k].c[2] = v[k].c[3] = 0;
+    v[k].p = 0;
+  }
+  int p[NS];
+  int r[4];
+
+  // Node phases: acc *= 1 + w^(phase + 4 parity), i.e. acc + rot(acc).
+  const int cnt1 = __ldg(tb.np_cnt + g);
+  for (int t = 0; t < tb.T1; ++t) {
+    if (t < cnt1) {
+      const int ph = __ldg(tb.np_phase + t * G + g);
+      par.node(t, p);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        rot(v[k].c, (ph + 4 * p[k]) & 7, r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[k].c[j] += r[j];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k) reduce_step(v[k]);
+  }
+  finish_product<NS>(tb, g, par, tb.pf_pow, v);
+}
+
+// acc + s w^Q acc, then a reduce step, for each shot: the factor 1 + w^k of a
+// kept node-phase term, k = Q + 4 (parity XOR the phase's bit 2), as
+// w^(Q + 4) = -w^Q; s = +-1 per shot.
+template <int Q, int NS>
+__device__ __forceinline__ void add_turned(const int (&s)[NS], Zw (&v)[NS]) {
+  int r[4];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    rot(v[k].c, Q, r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[k].c[j] += s[k] * r[j];
+    reduce_step(v[k]);
+  }
+}
+
+// exact_wide's product of graph g for NS shots, with the node-phase fold: a
+// shot whose vanish bit is set starts from 0 (every step is linear), the
+// others from 1; then the kept terms, each a rotation by the phase mod 4,
+// which the warp shares (a branch that does not diverge), with a sign per
+// shot; the dead slots' reduce steps; finish_product with the fold's power.
+template <int NS>
+__device__ __forceinline__ void folded_product(const Tables& tb, const Fold& nf, int g,
+                                               const bitsliced::Column<NS>& par,
+                                               const bitsliced::Entry<NS>& van, Zw (&v)[NS]) {
+  const int G = tb.G;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    v[k].c[0] = 1 - (int)((van.w[k] >> par.lane) & 1u);
+    v[k].c[1] = v[k].c[2] = v[k].c[3] = 0;
+    v[k].p = 0;
+  }
+  int p[NS];
+  const int cnt = __ldg(nf.cnt + g);
+  for (int t = 0; t < cnt; ++t) {
+    const int ph = __ldg(nf.phase + t * G + g);
+    par.node(t, p);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) p[k] = 1 - 2 * (p[k] ^ (ph >> 2));
+    switch (ph & 3) {
+      case 1: add_turned<1>(p, v); break;
+      case 2: add_turned<2>(p, v); break;
+      default: add_turned<3>(p, v); break;
+    }
+  }
+  const int dead = __ldg(nf.dead + g);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) reduce_steps(v[k], dead);
+  finish_product<NS>(tb, g, par, nf.power, v);
 }
 
 // m * 2^n as two exact power-of-two factors built from exponent bits, each a
@@ -429,16 +541,20 @@ __device__ __forceinline__ void closed_form_add(const Tables& tb, int g, const P
 
 // K5: block = 128 shots (four groups of 32) x one tile of blockDim.x (a
 // power of two) graphs, IB bytes an index of the lists. Dynamic shared memory
-// (bitsliced.cuh): the bit planes, the lists' row table, then one column per
-// thread. In the integer stage a thread is a graph of the tile and fills its
-// column for all 128 shots. In the per-shot stage a lane is one shot of each
-// group and warp w takes the tile's graphs w, w + warps, ...: each thread forms
-// its four shots' products of one graph after the other and adds them to its
-// running exact sums; then the warps' sums are added in order. Writes
+// (bitsliced.cuh): the bit planes, the kept stream's row table, then one
+// column per thread (fold_column_entries). In the integer stage a thread is a
+// graph of the tile and fills its column for all 128 shots: the kept
+// node-phase terms' parities and the other families' (integer_stage on the
+// kept stream), then the vanish words (vanish_stage on the folded one). In the
+// per-shot stage a lane is one shot of each group and warp w takes the
+// tile's graphs w, w + warps, ...: each thread forms its four shots' products
+// of one graph after the other and adds them to its running exact sums (a
+// graph whose 128 products vanish is skipped: its vanish entry is the same
+// for all lanes); then the warps' sums are added in order. Writes
 // out_c[tile][b][0..3] and out_p[tile][b].
 template <int IB>
 __global__ void __launch_bounds__(kMaxTile)
-    exact_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb,
+    exact_wide(const uint8_t* __restrict__ x, long long B, int P, Tables tb, Fold nf,
                int32_t* __restrict__ out_c, int32_t* __restrict__ out_p) {
   constexpr int NG = bitsliced::kGroups, NS = bitsliced::kShots;
   __shared__ Zw red[kMaxTile / 32][NS];
@@ -448,12 +564,15 @@ __global__ void __launch_bounds__(kMaxTile)
   const int lane = tid & 31, warp = tid >> 5, warps = stride >> 5;
   const int g0 = tile * stride;
   const int32_t* base = reinterpret_cast<const int32_t*>(bs_dyn + P + 1);
-  bitsliced::Entry<NG>* columns = bs_dyn + bitsliced::column_offset<NG>(P, tb.T1, tb.T2, tb.T3, tb.T4);
-  bitsliced::build_planes(x, B, P, b0, tb.lists, bs_dyn);
+  const bitsliced::Lists& bl = nf.kept;
+  bitsliced::Entry<NG>* columns = bs_dyn + bitsliced::column_offset<NG>(P, bl.T1, bl.T2, bl.T3, bl.T4);
+  bitsliced::build_planes(x, B, P, b0, bl, bs_dyn);
   __syncthreads();
-  if (g0 + tid < tb.G)
-    bitsliced::integer_stage<bitsliced::kAllStages, IB>(tb.lists, g0 + tid, bs_dyn, base,
-                                                        columns + tid, stride);
+  if (g0 + tid < tb.G) {
+    bitsliced::integer_stage<bitsliced::kAllStages, IB>(bl, g0 + tid, bs_dyn, base, columns + tid, stride);
+    columns[tid + (bl.T1 + 2 * bl.T4 + bitsliced::kSliced) * stride] =
+        bitsliced::vanish_stage<IB>(nf.folded, g0 + tid, bs_dyn, nf.folded.base);
+  }
   __syncthreads();
 
   Zw acc[NG];
@@ -461,9 +580,14 @@ __global__ void __launch_bounds__(kMaxTile)
   for (int k = 0; k < NG; ++k) acc[k] = Zw{{0, 0, 0, 0}, 0};
   const int n = min(stride, tb.G - g0);
   for (int j = warp; j < n; j += warps) {
+    const bitsliced::Column<NG> par{columns + j, stride, nf.K, tb.T4, lane};
+    const bitsliced::Entry<NG> van = par.vanish();
+    uint32_t all = ~0u;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) all &= van.w[k];
+    if (all == ~0u) continue;
     Zw v[NG];
-    const bitsliced::Column<NG> par{columns + j, stride, tb.T1, tb.T4, lane};
-    product<NG>(tb, g0 + j, par, v);
+    folded_product<NG>(tb, nf, g0 + j, par, van, v);
 #pragma unroll
     for (int k = 0; k < NG; ++k) add_exact(acc[k], v[k]);
   }
@@ -600,15 +724,23 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Entries of an exact_wide column: the kept node-phase terms', the phase
+// pairs', the kSliced ones and the vanish entry.
+int fold_column_entries(const Fold& nf) { return nf.K + 2 * nf.kept.T4 + bitsliced::kSliced + 1; }
+
 template <int IB>
-cudaError_t launch_exact_wide(const uint8_t* x, long long B, int P, const Tables& tb, int tile,
-                              int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
+cudaError_t launch_exact_wide(const uint8_t* x, long long B, int P, const Tables& tb, const Fold& nf,
+                              int tile, int32_t* out_c, int32_t* out_p, cudaStream_t stream) {
+  using bitsliced::Entry;
+  using bitsliced::kGroups;
   const dim3 grid((unsigned)((B + bitsliced::kShots - 1) / bitsliced::kShots),
                   (unsigned)((tb.G + tile - 1) / tile));
-  const size_t bytes = bitsliced::shared_bytes<bitsliced::kGroups>(P, tb.T1, tb.T2, tb.T3, tb.T4, tile);
+  const bitsliced::Lists& bl = nf.kept;
+  const size_t bytes = sizeof(Entry<kGroups>) * (bitsliced::column_offset<kGroups>(P, bl.T1, bl.T2, bl.T3, bl.T4) +
+                                                 (size_t)fold_column_entries(nf) * tile);
   const cudaError_t err = allow_shared(exact_wide<IB>, bytes);
   if (err != cudaSuccess) return err;
-  exact_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, out_c, out_p);
+  exact_wide<IB><<<grid, tile, bytes, stream>>>(x, B, P, tb, nf, out_c, out_p);
   return cudaSuccess;
 }
 
@@ -654,23 +786,30 @@ int finish(cudaError_t err) { return err != cudaSuccess ? (int)err : (int)cudaGe
 }  // namespace
 
 // Exact finisher (K5 wide, K7a small). x: (B, P) uint8 rows; flat: the
-// rung's int32 table buffer; out_c: (n_tiles, B, 4) int32; out_p:
-// (n_tiles, B) int32, n_tiles = ceil(G / tile) when wide, else 1. Any number
-// W of packed words per row. Returns the first CUDA error of the launch (0
-// on success).
+// rung's int32 table buffer, whose node-phase fold (K kept and F folded
+// terms, read by K5 alone) starts at word `fold`, its folded terms' list
+// stream at word `vanish`; out_c: (n_tiles, B, 4)
+// int32; out_p: (n_tiles, B) int32, n_tiles = ceil(G / tile) when wide, else
+// 1. Any number W of packed words per row. Returns the first CUDA error of
+// the launch (0 on success).
 extern "C" int tsim_exact_eval(const void* x, long long B, int P, const void* flat, int G,
-                               int T1, int T2, int T3, int T4, int W, int wide, int tile,
-                               void* out_c, void* out_p, void* stream) {
-  if (!valid_shape(B, G, W, wide, tile)) return (int)cudaErrorInvalidValue;
-  const Tables tb = make_tables(static_cast<const int32_t*>(flat), false, G, T1, T2, T3, T4, W, 0, 0);
+                               int T1, int T2, int T3, int T4, int W, int K, int F, long long fold,
+                               long long vanish, int wide, int tile, void* out_c, void* out_p,
+                               void* stream) {
+  if (!valid_shape(B, G, W, wide, tile) || K < 0 || F < 0 || fold < 0 || vanish < 0)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* words = static_cast<const int32_t*>(flat);
+  const Tables tb = make_tables(words, false, G, T1, T2, T3, T4, W, 0, 0);
   const uint8_t* xp = static_cast<const uint8_t*>(x);
   int32_t* oc = static_cast<int32_t*>(out_c);
   int32_t* op = static_cast<int32_t*>(out_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool one = bitsliced::index_bytes(P) == 1;
-  if (wide)
-    return finish(one ? launch_exact_wide<1>(xp, B, P, tb, tile, oc, op, s)
-                      : launch_exact_wide<2>(xp, B, P, tb, tile, oc, op, s));
+  if (wide) {
+    const Fold nf = make_fold(words, fold, vanish, G, K, F, T2, T3, T4);
+    return finish(one ? launch_exact_wide<1>(xp, B, P, tb, nf, tile, oc, op, s)
+                      : launch_exact_wide<2>(xp, B, P, tb, nf, tile, oc, op, s));
+  }
   return finish(launch_small(one ? &exact_small<1> : &exact_small<2>, xp, B, P, tb, s, oc, op));
 }
 

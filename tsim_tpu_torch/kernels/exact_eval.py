@@ -88,7 +88,8 @@ def _launch(name: str, err: int, lib, tables) -> None:
 def exact_partials(tables, x: torch.Tensor):
     """(B, P) uint8 rows on a CUDA device -> exact per-tile graph sums:
     coefficients (n_tiles, B, 4) int32 and power (n_tiles, B) int32, for a
-    rung without approximate floatfactors (K5 wide, K7a small)."""
+    rung without approximate floatfactors (K5 wide, on the rung's node-phase
+    fold, ``compile/node_fold.py``; K7a small)."""
     _check(tables, x)
     if tables.approximate:
         raise ValueError("this rung has approximate floatfactors; use approx_partials")
@@ -101,12 +102,13 @@ def exact_partials(tables, x: torch.Tensor):
     lib = build.load()
     config = configuration(G)
     t1, t2, t3, t4 = tables.dims
+    kept, folded = tables.fold[:2]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tsim_exact_eval(
             ctypes.c_void_p(x.data_ptr()), B, tables.n_params,
             ctypes.c_void_p(tables.flat.data_ptr()), G, t1, t2, t3, t4, tables.words,
-            int(config == "wide"), graph_tile(G),
+            kept, folded, *tables.fold_offsets, int(config == "wide"), graph_tile(G),
             ctypes.c_void_p(out_c.data_ptr()), ctypes.c_void_p(out_p.data_ptr()),
             ctypes.c_void_p(stream),
         )

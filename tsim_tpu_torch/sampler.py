@@ -49,6 +49,7 @@ from .compile.sample_eval import (
     norm_deviation_tolerance,
     rung_tables,
 )
+from .compile.exact_tables import ExactTables
 from .compile.sample_tables import SampleTables
 from .compile import aot_cache
 from .compile.pipeline import compile_program
@@ -189,6 +190,18 @@ class ProgramTables(nn.Module):
         self.register_buffer("output_reindex", _long(reindex))
         self.components = nn.ModuleList(
             ComponentTables(c, evaluation, per_term) for c in program.components
+        )
+
+    def node_fold_counts(self) -> dict:
+        """Each exact rung's graphs, live node-phase terms and the terms of
+        phase 0 or 4 that ``exact_wide``'s fold takes out of its per-shot
+        stage (``compile/node_fold.py``), in component then rung order."""
+        exact = [r for comp in self.components for r in comp.rungs
+                 if isinstance(r, ExactTables) and r.node_terms is not None]
+        return dict(
+            exact_rung_graphs=[r.num_graphs for r in exact],
+            live_node_terms=[r.node_terms[0] for r in exact],
+            folded_node_terms=[r.node_terms[1] for r in exact],
         )
 
     def direct_outputs(self, f_params: torch.Tensor) -> torch.Tensor:
@@ -870,7 +883,9 @@ class _CompiledSamplerBase:
                 exported.noise, int(np.random.default_rng(seed).integers(0, 2**30))
             )
             self._native_frame_seed = int(np.random.default_rng(seed + 1).integers(0, 2**30))
-        self._tables = ProgramTables(prog, evaluation, per_term).to(self.device)
+        with span("tsim.tables", evaluation=evaluation):
+            self._tables = ProgramTables(prog, evaluation, per_term).to(self.device)
+            note(**self._tables.node_fold_counts())
         self._device_channels = DeviceChannelSampler(exported.noise, self.device)
         devices = (self.device,) if self._mesh is None else self._mesh.distinct
         self._replicas = replicate(self._tables, devices)

@@ -11,7 +11,9 @@ for a batch's copy and its move into the result (``tsim.to_host.wait``,
 ``tsim.to_host.move``), the host's read of the norm deviation
 (``tsim.deviation.read``), a postselected chunk's draw, survivor read and
 evaluation (``tsim.postsel.draw``, ``.read``, ``.evaluate``), and in set-up
-the host compile (``tsim.compile``), the kernels' load (``tsim.kernels.load``)
+the host compile (``tsim.compile``), the build of the evaluator tables
+(``tsim.tables``, with each exact rung's live node-phase terms and those
+that ``exact_wide``'s fold takes), the kernels' load (``tsim.kernels.load``)
 and the K4 self-test (``tsim.self_test``). Counts ride on a span as its
 attributes (``rows``, ``survivors``, ...; :func:`note` sets them once they
 are known). Recording is off by default: :func:`span` then checks one flag
